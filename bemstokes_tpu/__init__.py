@@ -1,44 +1,38 @@
-"""bemstokes_tpu: a TPU-native boundary-element framework for the exterior Stokes
-problem and micro-swimmer motility.
+"""bemstokes_tpu: a boundary-element framework for the exterior Stokes
+problem and micro-swimmer motility, written in JAX.
 
-Built from scratch in JAX/XLA (with Pallas kernels on the hot paths), with the
-capabilities of the reference C++/deal.II/Trilinos library mathLab/BEMStokes
-(see SURVEY.md) but an array-first architecture:
+Built from scratch in JAX/XLA (with a fused Pallas kernel for the GPU
+assembly hot path), with the capabilities of the reference
+C++/deal.II/Trilinos library mathLab/BEMStokes (see SURVEY.md) but an
+array-first architecture:
 
 - surface meshes, Lagrange elements and quadrature as plain arrays
   (`bemstokes_tpu.mesh`, `bemstokes_tpu.fem`)
 - Stokeslet / stresslet / image-system Green's functions as vectorized jnp
-  functions usable inside Pallas kernels (`bemstokes_tpu.kernels`)
+  functions, with a component-form pair body the GPU kernel shares
+  (`bemstokes_tpu.kernels`)
 - dense single-layer (V) / double-layer (K) operators assembled by tiled
   collocation kernels, with a separate uniform batched path for the singular
   pairs (`bemstokes_tpu.ops`)
-- jitted GMRES + blocked-LU direct preconditioner, row-sharded over a
+- jitted GMRES + dense-LU direct preconditioner, row-sharded over a
   `jax.sharding.Mesh` (`bemstokes_tpu.la`, `bemstokes_tpu.parallel`)
 - rigid-body kinematics, quaternion time stepping and the frame loop
   (`bemstokes_tpu.physics`, `bemstokes_tpu.problem`)
 
 Float64 is required for BEM conditioning in the validation path; we enable
 x64 at import unless the user explicitly opts out with BEMSTOKES_X64=0.
-The performance path runs f32/bf16 with compensated accumulation.
 """
 
 import os as _os
 
-if _os.environ.get("BEMSTOKES_X64", "1") != "0":
-    import jax as _jax
+import jax as _jax
 
+if _os.environ.get("BEMSTOKES_X64", "1") != "0":
     _jax.config.update("jax_enable_x64", True)
 
-# TPU matmuls default to ONE bf16 pass for f32 inputs, which costs ~3 digits
-# in the assembly contractions and the GMRES matvec (measured: raw-K error
-# 9.8e-2 vs f64 at DEFAULT, 1e-6 at "high"/3-pass bf16, which is f32-exact
-# for our magnitudes).  BEM conditioning can't absorb that; "high" costs
-# little because the assembly is VPU/HBM-bound, not MXU-bound.  Override
-# with BEMSTOKES_MATMUL_PRECISION=default|high|highest.
-_prec = _os.environ.get("BEMSTOKES_MATMUL_PRECISION", "high")
-if _prec != "default":
-    import jax as _jax
-
-    _jax.config.update("jax_default_matmul_precision", _prec)
+# f32 operands must meet f32 products: a GPU runs a DEFAULT-precision f32
+# matmul in TF32 (10-bit mantissa, ~3 digits), which BEM conditioning cannot
+# absorb in the operator, the GMRES matvec or the LU.  f64 is unaffected.
+_jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

@@ -29,18 +29,9 @@ class SolverConfig:
     bandwith: int = 100
     refactor_iteration_trigger: int = 100
     # dtype of the Direct-preconditioner LU factors: "same" follows the
-    # problem dtype; "float32" enables the TPU mixed-precision path (f32 LU
-    # as preconditioner for f64 GMRES — TPUs have no native f64 LU)
+    # problem dtype; "float32" factors in f32 (a stale approximate factor
+    # is a preconditioner either way; f64 GMRES restores full accuracy)
     preconditioner_dtype: str = "same"
-    # f64 runs on TPU above this many unknowns route every [dn, dn] @ [dn]
-    # product through the split-precision GEMV (la/mixed.py: hi/lo f32 MXU
-    # passes at HIGHEST precision, f64 chunk accumulation; measured 1e-7
-    # relative at n=8192, plain-f32 speed) — XLA's
-    # emulated f64 dot materializes 8x-n^2 matrix copies and is
-    # memory-impossible at production scale (measured 35.8 GB for one
-    # 18,444-unknown pipeline).  Small validation configs below the
-    # threshold keep the bit-true emulated path.
-    split_f64_gemv_threshold: int = 8192
 
 
 @dataclasses.dataclass
@@ -211,39 +202,29 @@ class ProblemConfig:
     # matvec recomputes operator tiles on the fly (assembly-fused sweep,
     # ops.matfree_node) plus sparse singular/near COO deltas, preconditioned
     # by block-Jacobi of materialized diagonal node-blocks with an exact
-    # bordered Schur tail.  Escapes the materialized-operator HBM cap on a
-    # single chip (capacity model: docs/PERFORMANCE.md); matches the
-    # materialized path to 1e-7 (tests/test_matfree.py)
+    # bordered Schur tail.  Escapes the materialized-operator memory cap on
+    # a single device; matches the materialized path to 1e-7
+    # (tests/test_matfree.py)
     matrix_free: bool = False
     matfree_block_nodes: int = 1024  # preconditioner diagonal-block size
     # keep the assembled V/K operators in each frame's result (needed by
     # the frozen-geometry fast path, the resistance strategy and
     # print_matrices).  False drops them from the jitted pipeline's outputs
-    # — at f64 production scale that is 5.4 GB of HBM residency the solve
+    # — at f64 production scale that is 5.4 GB of device memory the solve
     # does not need (the monolithic A carries everything)
     keep_operators: bool = True
-    # sweep backend override for the fused matvec: None = auto (Pallas on
-    # TPU, XLA elsewhere); "xla" | "pallas" | "pallas_interpret" for tests
-    matfree_backend: str | None = None
     # numerics
     dtype: str = "float64"
     row_tile: int = 32
     cell_chunk: int = 256
-    # assembly backend: "jax" (XLA gather path, any dtype/dim) or "pallas"
-    # (the fused TPU node kernel — f32, 3D; ~2x the XLA path's throughput).
-    # f64 runs wanting the Pallas bulk should use mixed_precision_bulk
-    assembly_backend: str = "jax"
-    # f64 runs on TPU: do the O(N^2) smooth bulk assembly in f32 through the
-    # fused Pallas kernel, keep near/singular corrections + solve in f64
+    # assembly backend (ops.assemble.AssemblyConfig.backend): "auto" (the
+    # fused node kernel on a GPU in 3D, the XLA gather path otherwise),
+    # "jax" (XLA gather path, any dtype/dim) or "pallas" (the fused kernel)
+    assembly_backend: str = "auto"
+    # f64 runs: do the O(N^2) smooth bulk assembly in f32 through the fused
+    # kernel, keep near/singular corrections + solve in f64
     # (ops.assemble.AssemblyConfig.mixed_bulk)
     mixed_precision_bulk: bool = False
-    # q-contraction of the Pallas node kernel (AssemblyConfig.pallas_reduce):
-    # "gemm" | "qmajor" | "qmajor_per_v".  Throughput is a wash at the
-    # default order-4 shapes (measured, TUNE_ASSEMBLY_TPU.json), but
-    # "qmajor_per_v" shrinks the accumulator scoped-VMEM 16x, which is what
-    # lets HIGH-ORDER kernels (e.g. a uniform order-6 rule, nq=36) compile
-    # at all — the gemm-mode planes overflow scoped VMEM there
-    pallas_reduce: str = "gemm" 
     # curved geometry: snap high-order mapping nodes onto an analytic body
     # manifold (none|sphere|spheroid|cylinder) — required to reach the 1e-6
     # sphere-drag validation target with map_degree >= 2

@@ -153,3 +153,35 @@ def euler_at_theta(
     Rm = jnp.asarray([[1.0, 0.0, 0.0], [0.0, ct, -st], [0.0, st, ct]])
     rotated = reference_euler @ Rm.T
     return jnp.where((flagellum_mask > 0)[:, None], rotated, reference_euler)
+
+
+def create_bacterium_mesh(
+    cfg: FlagellumConfig | None = None,
+    n_length: int = 24,
+    n_around: int = 8,
+    head_refinements: int = 2,
+    head_radius: float = 0.8,
+) -> SurfaceMesh:
+    """A bacterium built in code: a spherical head of `head_radius` whose
+    surface ends 0.2 short of the origin, plus the constant-spiral
+    flagellum tube (`reference_constant_spiral_euler` applied to
+    `create_initial_flagellum_mesh`).  The head lies at x <= -0.2 and the
+    flagellum at x > 0, which is the flagellum/head split
+    `StokesBEMProblem` draws at x = -0.1.  It stands in for the
+    reference's bacterium gait meshes (`tests/grid_test/bacterium_*.msh`)."""
+    from .mesh.factories import create_sphere
+
+    cfg = cfg or FlagellumConfig()
+    tube = create_initial_flagellum_mesh(cfg, n_length=n_length, n_around=n_around)
+    verts = np.asarray(
+        reference_constant_spiral_euler(
+            jnp.asarray(tube.vertices), cfg, jnp.ones(tube.n_vertices)
+        )
+    )
+    flagellum = SurfaceMesh(verts, tube.cells, tube.material_id)
+    head = create_sphere(
+        center=(-(head_radius + 0.2), 0.0, 0.0),
+        radius=head_radius,
+        refinements=head_refinements,
+    )
+    return head.merged_with(flagellum)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 
 
@@ -225,46 +226,121 @@ def no_slip_wall_singular_GW(
     return sk + extra
 
 
-def free_surface_G_Wn(p, p_image, n, wall_axis: int, eps: float = 0.0):
+def free_surface_pair(p, p_image, n, wall_axis: int):
+    """Component form of `free_surface_G_Wn` (see `stokeslet_pair`): the
+    mirror Stokeslet/stresslet enters with a minus sign on the wall-normal
+    row, so the 3x3 results are not symmetric."""
+    from .stokeslet import stokeslet_pair
+
+    G0, Wn0 = stokeslet_pair(p, n)
+    GI, WnI = stokeslet_pair(p_image, n)
+    s = [-1.0 if a == wall_axis else 1.0 for a in range(3)]
+    G = tuple(tuple(G0[a][b] + s[a] * GI[a][b] for b in range(3)) for a in range(3))
+    Wn = tuple(
+        tuple(Wn0[a][b] + s[a] * WnI[a][b] for b in range(3)) for a in range(3)
+    )
+    return G, Wn
+
+
+def no_slip_pair(p, p_image, n, wall_axis: int):
+    """Component form of the Blake no-slip system (`no_slip_wall_G` and
+    `no_slip_wall_Wn`, same literal term structure), for the pair body
+    shared by every 3D assembly path (see `stokeslet_pair`).  The
+    collocation height h0 = (p_image - p)_w / 2 is read off the pair, so a
+    pair whose offsets are both replaced by the same dummy gets h0 = 0."""
+    w = wall_axis
+    h0 = 0.5 * (p_image[w] - p[w])
+    r2 = p[0] * p[0] + p[1] * p[1] + p[2] * p[2]
+    rI2 = p_image[0] * p_image[0] + p_image[1] * p_image[1] + p_image[2] * p_image[2]
+    invR = jax.lax.rsqrt(r2)
+    invRI = jax.lax.rsqrt(rI2)
+    invR2, invRI2 = invR * invR, invRI * invRI
+    invR3, invRI3 = invR * invR2, invRI * invRI2
+    invR5, invRI5 = invR3 * invR2, invRI3 * invRI2
+    invRI7 = invRI5 * invRI2
+    pn = p[0] * n[0] + p[1] * n[1] + p[2] * n[2]
+    pIn = p_image[0] * n[0] + p_image[1] * n[1] + p_image[2] * n[2]
+    pIw = p_image[w]
+    # corr = -2 h0^2 D + 2 h0 (pI_w D + SD) = beta D + 2 h0 SD
+    beta = 2.0 * h0 * (pIw - h0)
+    cG = 1.0 / (8.0 * math.pi)
+    cW = 3.0 / (4.0 * math.pi)
+    G = [[None] * 3 for _ in range(3)]
+    Wn = [[None] * 3 for _ in range(3)]
+    for a in range(3):
+        t = 1.0 if a == w else -1.0  # G correction row sign
+        tp = -t  # W correction row sign
+        for b in range(3):
+            eye = a == b
+            base = p[a] * p[b] * invR3 - p_image[a] * p_image[b] * invRI3
+            if eye:
+                base = base + invR - invRI
+            D = -3.0 * p_image[a] * p_image[b] * invRI5
+            if eye:
+                D = D + invRI3
+            corr = beta * D
+            if a == w:
+                corr = corr + 2.0 * h0 * p_image[b] * invRI3
+            if b == w:
+                corr = corr - 2.0 * h0 * p_image[a] * invRI3
+            G[a][b] = cG * (base + t * corr)
+            wbase = (
+                -p[a] * p[b] * pn * invR5 + p_image[a] * p_image[b] * pIn * invRI5
+            )
+            Tn = -n[a] * p_image[b] * invRI5 + 5.0 * p_image[a] * p_image[b] * pIn * invRI7
+            if eye:
+                Tn = Tn - p_image[a] * p_image[a] * n[a] * invRI5
+            Un = n[b] * p_image[a] * pIw * invRI5
+            if a == w:
+                Un = Un - p_image[b] * pIn * invRI5
+            # 2 h0^2 Tn - 2 h0 (pI_w Tn + Un) = -(beta Tn + 2 h0 Un)
+            Wn[a][b] = cW * (wbase - tp * (beta * Tn + 2.0 * h0 * Un))
+    return tuple(map(tuple, G)), tuple(map(tuple, Wn))
+
+
+def green_pair(kernel: str, p, p_image, n, wall_axis: int):
+    """The 3D pair body of `kernel` ("free_space" | "free_surface" |
+    "no_slip") in component form (see `stokeslet_pair`)."""
+    if kernel == "free_space":
+        from .stokeslet import stokeslet_pair
+
+        return stokeslet_pair(p, n)
+    if kernel == "free_surface":
+        return free_surface_pair(p, p_image, n, wall_axis)
+    if kernel == "no_slip":
+        return no_slip_pair(p, p_image, n, wall_axis)
+    raise ValueError(kernel)
+
+
+def _components(x):
+    return [x[..., c] for c in range(3)]
+
+
+def free_surface_G_Wn(p, p_image, n, wall_axis: int):
     """Fused (G, W . n) for the free-surface image kernel (row-sign
-    convention of the assembly path)."""
-    dim = p.shape[-1]
-    assert dim == 3
-    from .stokeslet import stokeslet_G_Wn
+    convention of the assembly path): `free_surface_pair` stacked to
+    [..., 3, 3] arrays."""
+    from .stokeslet import stack_3x3
 
-    G0, Wn0 = stokeslet_G_Wn(p, n, eps)
-    GI, WnI = stokeslet_G_Wn(p_image, n, eps)
-    s = _row_sign(dim, wall_axis, p.dtype)
-    return G0 + s[:, None] * GI, Wn0 + s[:, None] * WnI
+    G, Wn = free_surface_pair(
+        _components(p), _components(p_image), _components(n), wall_axis
+    )
+    return stack_3x3(G), stack_3x3(Wn)
 
 
-def no_slip_wall_Wn(p, p_image, n, wall_axis: int, eps: float = 0.0):
+def no_slip_G_Wn(p, p_image, n, wall_axis: int):
+    """Fused (G, W . n) of the Blake no-slip system: `no_slip_pair`
+    stacked to [..., 3, 3] arrays."""
+    from .stokeslet import stack_3x3
+
+    G, Wn = no_slip_pair(
+        _components(p), _components(p_image), _components(n), wall_axis
+    )
+    return stack_3x3(G), stack_3x3(Wn)
+
+
+def no_slip_wall_Wn(p, p_image, n, wall_axis: int):
     """Fused Blake stresslet contraction (W . n)_ij, analytically contracting
-    every term of `no_slip_wall_W` with n_k (same literal term structure)."""
-    dim = p.shape[-1]
-    assert dim == 3
-    h0 = 0.5 * (p_image[..., wall_axis] - p[..., wall_axis])[..., None, None]
-    R = (jnp.sqrt(jnp.sum(p * p, axis=-1)) + eps)[..., None, None]
-    RI = (jnp.sqrt(jnp.sum(p_image * p_image, axis=-1)) + eps)[..., None, None]
-    eye = jnp.eye(dim, dtype=p.dtype)
-    pi_ = p[..., :, None]
-    pj_ = p[..., None, :]
-    pIi = p_image[..., :, None]
-    pIj = p_image[..., None, :]
-    ni = n[..., :, None]
-    nj = n[..., None, :]
-    pn = jnp.sum(p * n, axis=-1)[..., None, None]
-    pIn = jnp.sum(p_image * n, axis=-1)[..., None, None]
-    pI_w = p_image[..., wall_axis][..., None, None]
-    e_w = jnp.zeros((dim,), dtype=p.dtype).at[wall_axis].set(1.0)
-    # base . n
-    base = -pi_ * pj_ * pn / R**5 + pIi * pIj * pIn / RI**5
-    # T . n (the delta_ij pI_k delta_jk pI_i product term contracts to
-    # delta_ij pI_i^2 n_i, preserving the reference's literal structure)
-    pI2diag = eye * (p_image**2 * n)[..., :, None]  # delta_ij pI_i^2 n_i
-    Tn = -(ni * pIj + pI2diag) / RI**5 + 5.0 * pIi * pIj * pIn / RI**7
-    # U . n
-    Un = (nj * pIi * pI_w - e_w[:, None] * pIj * pIn) / RI**5
-    t = _row_sign(dim, wall_axis, p.dtype)
-    Wn = base + t[:, None] * (2.0 * h0 * h0 * Tn - 2.0 * h0 * (pI_w * Tn + Un))
-    return Wn * dim / (2.0 * math.pi * (dim - 1))
+    every term of `no_slip_wall_W` with n_k (same literal term structure):
+    the W . n half of `no_slip_G_Wn`."""
+    return no_slip_G_Wn(p, p_image, n, wall_axis)[1]

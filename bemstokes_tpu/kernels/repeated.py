@@ -3,7 +3,7 @@
 The reference ships a machine-generated, fully unrolled 21-image periodic
 Stokeslet/stresslet (`include/repeated_kernel.h:28-42`,
 `source/repeated_kernel.cc:13-3782`, 3D only, images at -10h..+10h along y;
-compiled but referenced nowhere else).  The TPU-native version is simply the
+compiled but referenced nowhere else).  The version here is simply the
 free-space kernel summed over a static image lattice — a [n_images] batch
 axis the compiler vectorizes, replacing 3.8k lines of unrolled C++.
 """

@@ -89,14 +89,55 @@ def hypersingular_L(p: jnp.ndarray, eps: float = 0.0) -> jnp.ndarray:
     return L / (-4.0 * math.pi * (dim - 1))
 
 
+def stokeslet_pair(p, n):
+    """3D (G, W . n) in component form: p and n are sequences of three
+    broadcastable arrays (one per Cartesian component), and the result is a
+    pair of 3x3 nested tuples of arrays.  Both tensors are symmetric, and
+    G[a][b] IS G[b][a] (the same object), so a caller can accumulate the
+    upper triangle only.
+
+    This is the pair body every 3D assembly path evaluates: the XLA paths
+    through `stokeslet_G_Wn`, and the fused GPU kernel
+    (`ops.node_kernel`), which needs per-component [rows, cols] planes
+    because a block cannot hold a trailing axis of length 3."""
+    r2 = p[0] * p[0] + p[1] * p[1] + p[2] * p[2]
+    invR = jax.lax.rsqrt(r2)
+    invR2 = invR * invR
+    cG = 1.0 / (8.0 * math.pi)
+    gs = cG * invR * invR2
+    diag = cG * invR
+    pn = p[0] * n[0] + p[1] * n[1] + p[2] * n[2]
+    ws = (-3.0 / (4.0 * math.pi)) * pn * (invR2 * invR2 * invR)
+    G = [[None] * 3 for _ in range(3)]
+    Wn = [[None] * 3 for _ in range(3)]
+    for a in range(3):
+        for b in range(a, 3):
+            pp = p[a] * p[b]
+            G[a][b] = G[b][a] = gs * pp + diag if a == b else gs * pp
+            Wn[a][b] = Wn[b][a] = ws * pp
+    return tuple(map(tuple, G)), tuple(map(tuple, Wn))
+
+
+def stack_3x3(T):
+    """3x3 nested tuple of broadcastable arrays -> one [..., 3, 3] array."""
+    rows = [jnp.broadcast_arrays(*row) for row in T]
+    return jnp.stack([jnp.stack(r, axis=-1) for r in rows], axis=-2)
+
+
 def stokeslet_G_Wn(p: jnp.ndarray, n: jnp.ndarray, eps: float = 0.0):
     """Fused (G, W . n) without materializing the rank-3 stresslet:
     (W . n)_ij = -dim p_i p_j (p . n) / R^(dim+2) / (2 pi (dim-1)).
     p[..., d], n[..., d] (broadcastable) -> ([..., d, d], [..., d, d]).
 
     eps == 0 (the default) takes the division-free rsqrt path — this is the
-    assembly hot loop, evaluated once per (collocation, quadrature) pair."""
+    assembly hot loop, evaluated once per (collocation, quadrature) pair;
+    in 3D it is `stokeslet_pair`."""
     dim = p.shape[-1]
+    if eps == 0.0 and dim == 3:
+        G, Wn = stokeslet_pair(
+            [p[..., c] for c in range(3)], [n[..., c] for c in range(3)]
+        )
+        return stack_3x3(G), stack_3x3(Wn)
     if eps == 0.0:
         r2 = jnp.sum(p * p, axis=-1)
         invR = jax.lax.rsqrt(r2)

@@ -6,10 +6,19 @@ preconditioner on later frames, and refactor when GMRES iteration counts blow
 past a trigger (reference `include/direct_preconditioner.h:25-27`,
 `source/bem_stokes.cc:4336-4339, 5768-5779`).
 
-On TPU the factorization is jax.scipy's LU for small systems and this
-module's own blocked right-looking LU above LU_BLOCKED_THRESHOLD rows
-(block=1024 measured fastest at 18k: factor 0.60 s, apply 9.7 ms); the
-sharded multi-host variant lives in `bemstokes_tpu.parallel`.
+The factorization is jax.scipy's LU with full partial pivoting (cuSOLVER
+getrf on a GPU) at every single-device size; the sharded variant lives in
+`bemstokes_tpu.parallel.lu`.
+
+A stale factor is applied once per GMRES iteration, so the preconditioner
+keeps its factors in a form whose apply is made of matrix-vector products:
+the LU plus the inverses of the diagonal blocks of L and U
+(`precond_factor` / `precond_apply`).  cuSOLVER's getrs runs the two
+triangular solves as single-column trsm, which streams the factor far
+below memory bandwidth.  At 18,444 f64 unknowns on an H100 (80 GB HBM3,
+400 W limit): getrf 0.21 s, then 1.4 ms per apply against getrs's 7.0 ms
+and the 3.2 ms of a blocked LU with block-local pivoting (whose factor
+takes 0.56 s); GMRES iterations are the same under all three.
 """
 
 from __future__ import annotations
@@ -20,172 +29,74 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-
-# above this row count the dense factorization auto-routes to the blocked
-# LU below: XLA's LuDecomposition custom call allocates scoped VMEM
-# proportional to the row count and dies at ~18k rows on a v5e; the blocked
-# variant is also the faster one well before that
-LU_BLOCKED_THRESHOLD = 8192
+# rows per diagonal block of the preconditioner apply: each substitution
+# step is one [block, block] inverse product plus one off-diagonal panel
+# product.  At 18,444 unknowns on an H100, 2048 applies in 1.4 ms (1024:
+# 1.5 ms, 512: 1.9 ms); every step has its own shape, so fewer blocks also
+# compile faster (7 s against 15 s and 35 s)
+APPLY_BLOCK = 2048
 
 
 @jax.jit
 def lu_factor_dense(A: jnp.ndarray):
-    """LU factors; auto-selects the blocked path for large matrices.  The
-    two factor kinds are distinguishable by the pivot array rank (blocked
-    stores per-block permutations [nb, B]); `lu_solve_dense` dispatches."""
-    if A.shape[0] > LU_BLOCKED_THRESHOLD:
-        return blocked_lu_factor(A)
     return jax.scipy.linalg.lu_factor(A)
 
 
 @jax.jit
 def lu_solve_dense(factors, b: jnp.ndarray):
-    lu, piv = factors
-    if piv.ndim == 2:
-        return blocked_lu_solve(lu, piv, b)
-    return jax.scipy.linalg.lu_solve((lu, piv), b)
-
-
-# ----------------------------------------------------------------------
-# Single-chip BLOCKED LU.  XLA's LuDecomposition custom call allocates a
-# scoped-VMEM panel proportional to the row count and FAILS above ~16k rows
-# on a v5e ("Ran out of memory in memory space vmem ... LuDecompositionBlock"
-# at f32[18438, 128]) — which caps jax.scipy.linalg.lu_factor well below
-# production BEM sizes.  This right-looking blocked factorization only ever
-# feeds [B, B] diagonal blocks to the custom call and does the trailing
-# update as a full-width masked GEMM (pure MXU work, traced-offset
-# dynamic slices, fori_loop over block columns) — the single-device cousin
-# of `parallel.lu.slab_lu_factor`.  Pivoting is block-local (within each
-# diagonal block), the same trade as the distributed LU: used as a GMRES
-# preconditioner, f64/f32-refined GMRES restores full accuracy.
+    return jax.scipy.linalg.lu_solve(factors, b)
 
 
 @partial(jax.jit, static_argnames=("block",))
-def blocked_lu_factor(A: jnp.ndarray, block: int = 1024):
-    """Returns (LU [np, np], perm [nb, B]) with np = n padded to a multiple
-    of the block size; padded rows/columns carry a unit diagonal.  perm[j]
-    is the block-local row permutation applied to (the whole of) block row
-    j, stored pre-applied — the same convention as `parallel.lu`."""
+def precond_factor(A: jnp.ndarray, block: int = APPLY_BLOCK):
+    """Stale-LU preconditioner factors (lu, perm, linv, uinv): the LU with
+    partial pivoting, its row permutation, and the inverses of L's and U's
+    [block, block] diagonal blocks ([nb, block, block]; a ragged last block
+    is padded with the identity)."""
     n = A.shape[0]
-    B = min(block, -(-n // 128) * 128)
-    npad = -(-n // B) * B
-    nb = npad // B
-    dt = A.dtype
-    if npad != n:
-        Ap = jnp.zeros((npad, npad), dt)
-        Ap = Ap.at[:n, :n].set(A)
-        Ap = Ap.at[jnp.arange(n, npad), jnp.arange(n, npad)].set(1.0)
-        A = Ap
-    rows = jnp.arange(npad, dtype=jnp.int32)
-
-    def step(j, carry):
-        A, perms = carry
-        off = j * B
-        D = jax.lax.dynamic_slice(A, (off, off), (B, B))
-        lu_D, piv_D = jax.scipy.linalg.lu_factor(D)
-        perm_D = jax.lax.linalg.lu_pivots_to_permutation(piv_D, B)
-        # permute + factor the block row: row panel [B, npad]
-        panel = jax.lax.dynamic_slice(A, (off, 0), (B, npad))[perm_D, :]
-        L_jj = jnp.tril(lu_D, -1) + jnp.eye(B, dtype=dt)
-        solved = jax.lax.linalg.triangular_solve(
-            L_jj, panel, left_side=True, lower=True, unit_diagonal=True
-        )
-        after = rows >= off + B  # columns strictly right of the block
-        new_panel = jnp.where(after[None, :], solved, panel)
-        # store the INVERTED diagonal triangles (strict-lower inv(L_jj) +
-        # upper inv(U_jj)): the substitution steps become plain GEMVs
-        # instead of latency-bound per-block triangular-solve custom calls
-        # (measured 32 ms -> ~5 ms per apply at 18k unknowns)
-        eye_B = jnp.eye(B, dtype=dt)
-        invL = jax.lax.linalg.triangular_solve(
-            L_jj, eye_B, left_side=True, lower=True, unit_diagonal=True
-        )
-        invU = jax.lax.linalg.triangular_solve(
-            jnp.triu(lu_D), eye_B, left_side=True, lower=False
-        )
-        diag_store = jnp.tril(invL, -1) + jnp.triu(invU)
-        new_panel = jax.lax.dynamic_update_slice(new_panel, diag_store, (0, off))
-        A = jax.lax.dynamic_update_slice(A, new_panel, (off, 0))
-        # column panel: L_kj = A_kj U_jj^{-1} for rows below the block
-        U_jj = jnp.triu(lu_D)
-        colp = jax.lax.dynamic_slice(A, (0, off), (npad, B))
-        L_col = jax.lax.linalg.triangular_solve(
-            U_jj, colp, left_side=False, lower=False
-        )
-        below = rows >= off + B
-        L_col = jnp.where(below[:, None], L_col, 0.0)
-        keep = jnp.where(below[:, None], L_col, colp)
-        # trailing update FIRST (uses masked panels: L_col zero on/above the
-        # block row, U_row zero on/left of the block column, so only the
-        # trailing submatrix changes), then store the L column panel
-        U_row = jnp.where(after[None, :], new_panel, 0.0)
-        A = A - L_col @ U_row
-        A = jax.lax.dynamic_update_slice(A, keep, (0, off))
-        perms = perms.at[j].set(perm_D)
-        return A, perms
-
-    perms0 = jnp.zeros((nb, B), jnp.int32)
-    A_fin, perms = jax.lax.fori_loop(0, nb, step, (A, perms0))
-    return A_fin, perms
+    lu, piv = jax.scipy.linalg.lu_factor(A)
+    perm = jax.lax.linalg.lu_pivots_to_permutation(piv, n)
+    B = min(block, n)
+    eye = jnp.eye(B, dtype=lu.dtype)
+    diag = []
+    for s in range(0, n, B):
+        m = min(B, n - s)
+        diag.append(eye.at[:m, :m].set(lu[s : s + m, s : s + m]))
+    D = jnp.stack(diag)
+    eyes = jnp.broadcast_to(eye, D.shape)
+    linv = jax.lax.linalg.triangular_solve(
+        jnp.tril(D, -1) + eye, eyes, left_side=True, lower=True, unit_diagonal=True
+    )
+    uinv = jax.lax.linalg.triangular_solve(
+        jnp.triu(D), eyes, left_side=True, lower=False
+    )
+    return lu, perm, linv, uinv
 
 
 @jax.jit
-def blocked_lu_solve(LU: jnp.ndarray, perms: jnp.ndarray, b: jnp.ndarray):
-    """Solve with `blocked_lu_factor` factors; b is [n] (or [n, k]: columns
-    solved via vmap, matching jax.scipy.linalg.lu_solve's 2-D contract so
-    lu_solve_dense keeps one contract on both sides of the size threshold)."""
-    if b.ndim == 2:
-        return jax.vmap(
-            lambda col: blocked_lu_solve(LU, perms, col), in_axes=1, out_axes=1
-        )(b)
-    npad = LU.shape[0]
-    nb, B = perms.shape
-    dt = LU.dtype
-    n = b.shape[0]
-    bp = jnp.zeros((npad,), dt).at[:n].set(b.astype(dt))
-    rows = jnp.arange(npad, dtype=jnp.int32)
-
-    # the factors store every block row pre-permuted (including its L
-    # columns), so the rhs segments are permuted up front
-    def prep(j, y):
-        off = j * B
-        seg = jax.lax.dynamic_slice(y, (off,), (B,))[perms[j]]
-        return jax.lax.dynamic_update_slice(y, seg, (off,))
-
-    y = jax.lax.fori_loop(0, nb, prep, bp)
-
-    # the diagonal blocks of LU hold strict-lower inv(L_jj) + upper
-    # inv(U_jj) (stored at factor time), so each substitution step is a
-    # GEMV — the off-diagonal panel updates mask out the diagonal block,
-    # whose stored content is the inverse, not L/U
-
-    def fwd(j, y):
-        off = j * B
-        seg = jax.lax.dynamic_slice(y, (off,), (B,))
-        D = jax.lax.dynamic_slice(LU, (off, off), (B, B))
-        yj = seg + jnp.tril(D, -1) @ seg  # inv(L_jj) @ seg, unit diagonal
-        colp = jax.lax.dynamic_slice(LU, (0, off), (npad, B))
-        upd = colp @ yj
-        below = rows >= off + B  # masks the diagonal-block (inverse) rows
-        y = jnp.where(below, y - upd, y)
-        return jax.lax.dynamic_update_slice(y, yj, (off,))
-
-    y = jax.lax.fori_loop(0, nb, fwd, y)
-
-    def bwd(t, x):
-        j = nb - 1 - t
-        off = j * B
-        seg = jax.lax.dynamic_slice(x, (off,), (B,))
-        rowp = jax.lax.dynamic_slice(LU, (off, 0), (B, npad))
-        after = rows >= off + B  # masks the diagonal-block (inverse) cols
-        contrib = jnp.where(after, x, 0.0)  # solved entries right of block
-        seg = seg - rowp @ contrib
-        D = jax.lax.dynamic_slice(LU, (off, off), (B, B))
-        xj = jnp.triu(D) @ seg  # inv(U_jj) @ seg
-        return jax.lax.dynamic_update_slice(x, xj, (off,))
-
-    x = jax.lax.fori_loop(0, nb, bwd, y)
-    return x[:n].astype(b.dtype)
+def precond_apply(factors, b: jnp.ndarray):
+    """Solve L U x = P b with `precond_factor` factors by block forward and
+    back substitution, every step a matrix-vector product; b is [n] or
+    [n, k]."""
+    lu, perm, linv, uinv = factors
+    n = lu.shape[0]
+    B = linv.shape[1]
+    bounds = [(s, min(s + B, n)) for s in range(0, n, B)]
+    x = b.astype(lu.dtype)[perm]
+    y = []
+    for j, (s, e) in enumerate(bounds):
+        r = x[s:e]
+        if s:
+            r = r - lu[s:e, :s] @ jnp.concatenate(y)
+        y.append(linv[j, : e - s, : e - s] @ r)
+    z = []
+    for j in reversed(range(len(bounds))):
+        s, e = bounds[j]
+        r = y[j]
+        if e < n:
+            r = r - lu[s:e, e:] @ jnp.concatenate(z)
+        z.insert(0, uinv[j, : e - s, : e - s] @ r)
+    return jnp.concatenate(z).astype(b.dtype)
 
 
 @dataclasses.dataclass
@@ -193,10 +104,10 @@ class LUPreconditioner:
     """Stateful stale-LU preconditioner with the reference's refactor-on-
     iteration-count semantics.
 
-    `factor_dtype` supports the TPU mixed-precision path: factor in float32
-    (the only dtype with a native TPU LuDecomposition) and apply casts, while
-    GMRES iterates in float64 — a stale approximate factorization is a
-    preconditioner either way, and f64 GMRES restores full accuracy."""
+    `factor_dtype` supports the mixed-precision path: factor in float32 and
+    apply casts, while GMRES iterates in float64 — a stale approximate
+    factorization is a preconditioner either way, and f64 GMRES restores
+    full accuracy."""
 
     refactor_iteration_trigger: int = 100
     factor_dtype: jnp.dtype | None = None
@@ -205,7 +116,7 @@ class LUPreconditioner:
     def set_up(self, A: jnp.ndarray):
         if self.factor_dtype is not None:
             A = A.astype(self.factor_dtype)
-        self._factors = lu_factor_dense(A)
+        self._factors = precond_factor(A)
 
     @property
     def initialized(self) -> bool:
@@ -215,9 +126,7 @@ class LUPreconditioner:
         if self._factors is None:
             raise RuntimeError("LUPreconditioner not initialized")
         fdt = self._factors[0].dtype
-        if v.dtype != fdt:
-            return lu_solve_dense(self._factors, v.astype(fdt)).astype(v.dtype)
-        return lu_solve_dense(self._factors, v)
+        return precond_apply(self._factors, v.astype(fdt)).astype(v.dtype)
 
     def maybe_refactor(self, A: jnp.ndarray, last_iterations: int) -> bool:
         """Refactor if the last solve needed too many iterations. Returns

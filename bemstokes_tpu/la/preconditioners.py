@@ -3,7 +3,7 @@
 The reference selects among Trilinos preconditioners by name — ILU (IFPACK),
 AMG (ML), Jacobi, SOR, SSOR, Direct (stale Amesos LU) — at
 `source/bem_stokes.cc:4283-4313`.  The BEM operators here are DENSE, so the
-TPU-native family maps each name onto a dense, MXU/VPU-friendly equivalent:
+family here maps each name onto a dense equivalent:
 
 - "Jacobi":   diagonal scaling (identical math to the reference's).
 - "SOR"/"SSOR": one forward (resp. forward+backward) Gauss-Seidel sweep with

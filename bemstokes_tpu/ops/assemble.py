@@ -1,6 +1,6 @@
 """Collocation assembly of the dense single-layer (V) and double-layer (K)
 operators — the numerical core (reference `assemble_stokes_system`,
-`source/bem_stokes.cc:2841-3000`), redesigned array-first for TPU.
+`source/bem_stokes.cc:2841-3000`), redesigned array-first.
 
 Layout: for a scalar space with n nodes in dim-d space, V and K are dense
 [d*n, d*n] with component-blocked indices (a*n + i, b*n + j), matching the
@@ -20,9 +20,8 @@ Structure (instead of the reference's 5-deep element-at-a-time loops):
   [Nc, nl, q_sing] evaluation and a single scatter (reference singular rules:
   `source/bem_stokes.cc:4912-4986`).
 
-The default JAX path lets XLA fuse kernel evaluation with the contraction;
-`bemstokes_tpu.ops.pallas_assemble` provides the hand-fused Pallas variant of
-the inner tile computation with identical semantics.
+The XLA path lets XLA fuse kernel evaluation with the contraction; on a
+GPU the node pass runs as one fused kernel instead (`ops.node_kernel`).
 """
 
 from __future__ import annotations
@@ -43,17 +42,9 @@ from ..fem.quadrature import (
     iterated_gauss_1d,
 )
 from ..fem.reference_element import reference_element
-from ..kernels import (
-    stokeslet_G,
-    stresslet_W,
-    free_surface_G,
-    free_surface_W,
-    no_slip_wall_G,
-    no_slip_wall_W,
-    image_point,
-)
+from ..kernels import image_point
 from ..kernels.stokeslet import stokeslet_G_Wn
-from ..kernels.images import free_surface_G_Wn, no_slip_wall_Wn
+from ..kernels.images import free_surface_G_Wn, no_slip_G_Wn
 from ..mesh.dofs import ScalarSpace
 
 KERNEL_FREE_SPACE = "free_space"
@@ -71,71 +62,37 @@ class AssemblyConfig:
     # adaptive two-level quadrature: when set, the dense O(N^2) pass runs at
     # this (lower) order and only each node's `near_panels` nearest panels
     # are corrected to full `quad_order` by a gathered sparse pass — the
-    # classic distance-graded BEM quadrature, shaped TPU-first (uniform dense
-    # bulk + fixed-size irregular correction).  None = single-pass.
+    # classic distance-graded BEM quadrature (uniform dense bulk +
+    # fixed-size irregular correction).  None = single-pass.
     quad_order_far: int | None = None
     near_panels: int = 32
-    # near-panel selection for the correction pass: "exact" = lax.top_k on
-    # the squared distances (slow on TPU at O(N) candidates per row);
-    # "approx" = lax.approx_min_k (the TPU-native partial reduction,
-    # recall ~0.95+) — missing a borderline panel leaves it at the far rule,
-    # a quadrature-grading heuristic either way
-    near_selector: str = "exact"  # exact | approx
     singular_quadrature_order: int = 5
     singular_quadrature_type: str = "Mixed"  # Mixed | Duffy | Telles
     row_tile: int = 32  # collocation nodes per tile
     cell_chunk: int = 256  # panels per inner chunk
     dtype: jnp.dtype = jnp.float64
-    # column reduction strategy:
+    # column reduction strategy of the XLA path (backend="jax"):
     # - "gather" (default): emits dense per-cell-slot tensors in the hot
     #   loop and maps slots -> node columns with one static incidence gather
     #   (no scatter) — the fastest XLA formulation;
-    # - "node": column-centric pairwise pass — per-column quadrature tables
-    #   (each node's incident panel qpoints gathered ONCE per frame) turn
-    #   assembly into a pure N-body-style interaction kernel with ZERO
-    #   gather/scatter in the hot loop; own-cell contributions are
-    #   delta-corrected by the singular path.  Slower under XLA (kernel
-    #   evals are not shared across a cell's columns) but the natural shape
-    #   for the fused Pallas backend, which keeps every intermediate in VMEM;
     # - "scatter": the naive scatter-add path (reference semantics oracle).
+    # The fused kernel backends reduce per column node instead
+    # (`_assemble_rows_kernel`).
     column_mode: str = "gather"
     # tile-body backend:
-    # - "auto" (default): the fused node-mode Pallas kernel when it applies
-    #   (TPU platform, dim 3, free-space kernel, f32) — measured ~8x the
-    #   XLA path on a v5e — and the XLA path otherwise;
+    # - "auto" (default): resolved per platform by `_resolve_backend`;
     # - "jax": the XLA-fused path with the configured column_mode;
-    # - "pallas": force the hand-fused Pallas kernel (ops.pallas_node for
-    #   column_mode="node", ops.pallas_assemble for "gather");
-    # - "pallas_interpret": the Pallas kernel in interpreter mode (CPU
-    #   testing of the exact kernel semantics).
+    # - "pallas": the fused per-column-node GPU kernel (`ops.node_kernel`,
+    #   dim 3);
+    # - "pallas_interpret": that kernel in interpreter mode (CPU tests of
+    #   the exact kernel semantics).
     backend: str = "auto"
-    # Pallas node-kernel program tile (rows x column-nodes per program).
-    # BOTH must be multiples of 128 (Mosaic lane tiling: CJ is the lane dim
-    # in the default rows_lane layout, T in rows_sublane); T=CJ=128 measured
-    # best on v5e (scripts/tune_assembly.py; 256+ hits Mosaic limits)
-    pallas_row_tile: int = 128
-    pallas_col_chunk: int = 128
-    # q-contraction of the transposed Pallas node kernel:
-    # - "gemm": MXU GEMM against a 0/1 selection matrix over lane-major
-    #   samples (the r2-r4 formulation);
-    # - "qmajor": samples laid out q-major so the contraction is nq-1
-    #   contiguous [T, CJ] lane-slice adds — no MXU reduction;
-    # - "qmajor_per_v": additionally reduce each valence contribution
-    #   immediately, shrinking accumulator VMEM RMW traffic 16x.
-    # Measured on the v5e at the 6146-node bench shape (identical results
-    # to 2e-7): gemm 1.364e10, qmajor 1.285e10, qmajor_per_v 1.374e10
-    # interactions/s — i.e. NEITHER removing the MXU reduction NOR cutting
-    # accumulator RMW 16x moves throughput beyond relay noise, which pins
-    # the kernel's 46%-of-instruction-bound limiter to the per-valence VPU
-    # op stream itself (see BENCH_DETAILS pallas_reduce_sweep).
-    pallas_reduce: str = "gemm"
     # mixed-precision accuracy path: with dtype float64, run the O(N^2)
-    # smooth BULK pass in f32 through the fused Pallas kernel and keep the
+    # smooth BULK pass in f32 through the fused kernel and keep the
     # near-panel + singular corrections (and everything downstream) in f64.
-    # The f32 bulk carries ~1e-7 relative rounding on the far-field entries
-    # (and on the own-cell smooth part the singular delta subtracts in f64);
-    # integral functionals like the sphere drag average most of it away —
-    # measured by the bench accuracy gate.  SURVEY.md section 7.3.
+    # The f32 bulk carries ~1e-7 relative rounding on the far-field
+    # entries.  The XLA paths have no f32 bulk: `_resolve_backend` refuses
+    # the pair.
     mixed_bulk: bool = False
 
 
@@ -297,37 +254,16 @@ def build_assembly_tables(
     )
 
 
-def _eval_G_W(cfg: AssemblyConfig, R, R_img):
-    """Kernel dispatch (reference compute_G_kernel / compute_W_kernel,
-    `source/bem_stokes.cc:5028-5073`)."""
-    if cfg.kernel == KERNEL_FREE_SPACE:
-        return stokeslet_G(R), stresslet_W(R)
-    if cfg.kernel == KERNEL_FREE_SURFACE:
-        return (
-            free_surface_G(R, R_img, cfg.wall_axis),
-            free_surface_W(R, R_img, cfg.wall_axis),
-        )
-    if cfg.kernel == KERNEL_NO_SLIP:
-        return (
-            no_slip_wall_G(R, R_img, cfg.wall_axis),
-            no_slip_wall_W(R, R_img, cfg.wall_axis),
-        )
-    raise ValueError(cfg.kernel)
-
-
 def _eval_G_Wn(cfg: AssemblyConfig, R, R_img, normals):
     """Fused kernel dispatch: (G, W . n) with the normal contracted
     analytically — never materializes the rank-3 stresslet (the assembly hot
-    path; identical values to _eval_G_W + contract_normal)."""
+    path; the same values as the explicit kernels + contract_normal)."""
     if cfg.kernel == KERNEL_FREE_SPACE:
         return stokeslet_G_Wn(R, normals)
     if cfg.kernel == KERNEL_FREE_SURFACE:
         return free_surface_G_Wn(R, R_img, normals, cfg.wall_axis)
     if cfg.kernel == KERNEL_NO_SLIP:
-        return (
-            no_slip_wall_G(R, R_img, cfg.wall_axis),
-            no_slip_wall_Wn(R, R_img, normals, cfg.wall_axis),
-        )
+        return no_slip_G_Wn(R, R_img, normals, cfg.wall_axis)
     raise ValueError(cfg.kernel)
 
 
@@ -362,27 +298,25 @@ def assemble_V_K(
     return assemble_rows(euler, support_pts, xi, node_ids, jnp.int32(r0), tables)
 
 
-def _resolve_backend(cfg: AssemblyConfig) -> AssemblyConfig:
-    """Resolve backend="auto": the fused node-mode Pallas kernel wherever it
-    applies — TPU, dim 3, f32, any of the three kernels (free-space,
-    free-surface image, Blake no-slip image) — and the XLA path otherwise.
-    What stays XLA and why: dim 2 (the kernel's SoA planes and MXU
-    contraction are written for 3-vectors; 2D problems are tiny), and f64
-    (no native f64 on the TPU VPU — f64 accuracy runs use the XLA emulated
-    path, optionally with the f32 Pallas bulk via `mixed_bulk`)."""
-    if cfg.backend != "auto":
-        return cfg
-    pallas_ok = (
-        cfg.dim == 3
-        and (
-            jnp.dtype(cfg.dtype) == jnp.float32
-            or (jnp.dtype(cfg.dtype) == jnp.float64 and cfg.mixed_bulk)
+def _resolve_backend(cfg: AssemblyConfig, platform: str | None = None):
+    """Resolve backend="auto" for `platform` (default: JAX's default
+    backend): the fused node kernel on a GPU in 3D, the XLA path on a CPU
+    and in 2D.  Any other platform is an error, as is `mixed_bulk` on a
+    path without an f32 bulk pass."""
+    if cfg.backend == "auto":
+        platform = platform or jax.default_backend()
+        if platform not in ("cpu", "gpu"):
+            raise ValueError(f"no assembly backend for platform {platform!r}")
+        backend = "pallas" if platform == "gpu" and cfg.dim == 3 else "jax"
+        cfg = dataclasses.replace(cfg, backend=backend)
+    if cfg.backend in ("pallas", "pallas_interpret") and cfg.dim != 3:
+        raise ValueError("the fused node kernel is 3D-only")
+    if cfg.mixed_bulk and cfg.backend == "jax":
+        raise ValueError(
+            "mixed_bulk runs the bulk pass in f32 through the fused node "
+            "kernel, which this configuration does not use"
         )
-        and jax.default_backend() != "cpu"
-    )
-    if pallas_ok:
-        return dataclasses.replace(cfg, backend="pallas", column_mode="node")
-    return dataclasses.replace(cfg, backend="jax")
+    return cfg
 
 
 def assemble_rows(
@@ -425,8 +359,8 @@ def assemble_rows(
     )  # [Nc, nq, d], [Nc, nq, d], [Nc, nq]
     phi_fe = jnp.asarray(tables.phi_fe, dt)  # [nq, nl]
 
-    if cfg.column_mode == "node":
-        return _assemble_rows_node(
+    if cfg.backend in ("pallas", "pallas_interpret"):
+        return _assemble_rows_kernel(
             euler, support_pts, xi, node_ids, r0, tables, xq, normals, jxw
         )
 
@@ -489,43 +423,8 @@ def assemble_rows(
         column_mode="gather" (default): the chunk scan emits dense per-cell
         column-slot tensors (a plain stacked write), and one static incidence
         gather-reduce maps slot (c, l) -> node column j = cells_fe[c, l].
-        No scatter anywhere — the TPU-friendly formulation.
+        No scatter anywhere.
         """
-        use_pallas = (
-            cfg.backend in ("pallas", "pallas_interpret")
-            and d == 3
-            and cfg.kernel == KERNEL_FREE_SPACE
-        )
-        if use_pallas and cfg.column_mode == "gather":
-            from .pallas_assemble import pallas_tile_slots
-
-            # singular mask per (chunk, cell, row): row node in the cell
-            keep = jnp.logical_not(
-                jnp.any(cfe_c[:, :, :, None] == ids_t[None, None, None, :], axis=2)
-            ).astype(dt)  # [n_chunks, cc, tile]
-            wphi_c = jxw_c[..., None] * phi_fe[None, None]  # [nch, cc, nq, nl]
-            Vs, Ks = pallas_tile_slots(
-                xi_t,
-                xq_c,
-                nrm_c,
-                wphi_c,
-                keep,
-                C=cc,
-                nq=nq,
-                nl=nl,
-                interpret=(cfg.backend == "pallas_interpret"),
-            )  # [n_slots, 9, tile] each
-            m = inc_mask[:, :, None, None]
-            Vt = (Vs[inc_slot] * m).sum(axis=1)  # [n, 9, tile]
-            Kt = (Ks[inc_slot] * m).sum(axis=1)
-            rowV = Vt.reshape(n, d, d, tile).transpose(3, 1, 2, 0).reshape(
-                tile, d, d * n
-            )
-            rowK = Kt.reshape(n, d, d, tile).transpose(3, 1, 2, 0).reshape(
-                tile, d, d * n
-            )
-            return rowV, rowK
-
         if cfg.column_mode == "gather":
 
             def chunk_step(_, inp):
@@ -593,8 +492,8 @@ def node_column_samples(tables: AssemblyTables, xq, normals, jxw):
     each node's incident panel quadrature (points, unit normals,
     phi*JxW-weighted shape values) ONCE per frame.  Returns
     (Yj [n, m, d], Nj [n, m, d], Wj [n, m], vmax, nq) with m = vmax*nq and
-    zero weights on incidence padding.  Shared by the assembly node pass and
-    the matrix-free fused matvec (`ops.matfree_node`)."""
+    zero weights on incidence padding.  Shared by the fused assembly kernel
+    and the matrix-free sweep (`ops.matfree_node`)."""
     cfg = tables.cfg
     d = cfg.dim
     n = tables.n_nodes
@@ -620,203 +519,48 @@ def node_column_samples(tables: AssemblyTables, xq, normals, jxw):
     return Yj, Nj, Wj, vmax, nq
 
 
-def node_sweep_soa(xi, Yj, Nj, Wj, *, d, nq, vmax, T, CJ, bulk_dt, q_major=False):
-    """Pad + SoA-transpose the node-sweep inputs into the Pallas program
-    layout: xi_p [n_tiles*T, d] (rows, pad 1e8), Y/N [ncj, vmax, d, CJ*nq]
-    (column samples, lane-major), W [ncj, vmax, 1, CJ*nq] (0 on padding).
-    Shared by `pallas_node_blocks` callers and the matrix-free matvec.
-
-    `q_major=False` orders lanes m = c*nq + q (column-major; the
-    q-contraction needs the 0/1 S-matrix GEMM); `q_major=True` orders
-    m = q*CJ + c, so the q-contraction becomes nq-1 CONTIGUOUS [*, CJ]
-    lane-slice adds — no MXU reduction at all (the fastest assembly-kernel
-    reduction, see `_node_kernel_t`)."""
-    n = Yj.shape[0]
-    xi_p = _pad_to_multiple(xi.astype(bulk_dt), T, 0, pad_value=1e8)
-    Y4 = _pad_to_multiple(
-        Yj.astype(bulk_dt).reshape(n, vmax, nq, d), CJ, 0, pad_value=1e8
-    )
-    N4 = _pad_to_multiple(Nj.astype(bulk_dt).reshape(n, vmax, nq, d), CJ, 0)
-    W3 = _pad_to_multiple(Wj.astype(bulk_dt).reshape(n, vmax, nq), CJ, 0)
-    ncj = Y4.shape[0] // CJ
-    # [ncj, CJ, vmax, nq, d] -> lanes (CJ, nq) or (nq, CJ)
-    lane_perm = (0, 2, 4, 3, 1) if q_major else (0, 2, 4, 1, 3)
-    w_perm = (0, 2, 3, 1) if q_major else (0, 2, 1, 3)
-    Y_soa = (
-        Y4.reshape(ncj, CJ, vmax, nq, d)
-        .transpose(*lane_perm)
-        .reshape(ncj, vmax, d, CJ * nq)
-    )
-    N_soa = (
-        N4.reshape(ncj, CJ, vmax, nq, d)
-        .transpose(*lane_perm)
-        .reshape(ncj, vmax, d, CJ * nq)
-    )
-    W_b = W3.reshape(ncj, CJ, vmax, nq).transpose(*w_perm).reshape(
-        ncj, vmax, 1, CJ * nq
-    )
-    return xi_p, Y_soa, N_soa, W_b
+def node_sample_cells(tables: AssemblyTables, nq: int):
+    """[n, vmax*nq, nl] node ids of the cell each node-sweep sample lies on
+    (sample order of `node_column_samples`); the fused kernel masks a row's
+    own cells with it."""
+    cell_of = jnp.asarray(tables.inc_slot) // tables.nl_fe  # [n, vmax]
+    C = jnp.asarray(tables.cells_nodes_fe)[cell_of]  # [n, vmax, nl]
+    return jnp.repeat(C, nq, axis=1)
 
 
-def _assemble_rows_node(
+def _assemble_rows_kernel(
     euler, support_pts, xi, node_ids, r0, tables: AssemblyTables, xq, normals, jxw
 ):
-    """Column-centric dense pass: gather each column node's incident panel
-    quadrature (points, normals, JxW-weighted shape value) ONCE, then run a
-    pure pairwise interaction sweep (row tile x column chunk) with no
-    gather/scatter inside the hot loop.  Own-cell (singular) contributions
-    are included here with the smooth rule and replaced by the singular path
-    via delta correction (`_add_singular_rows(subtract_smooth=True)`)."""
+    """Column-centric dense pass through the fused kernel: gather each
+    column node's incident panel quadrature (points, normals, JxW-weighted
+    shape value) ONCE, then run a pure pairwise interaction sweep (row tile x
+    column chunk) with no gather/scatter inside the hot loop.  The kernel
+    masks a row's own cells, which the singular path then adds
+    (`ops.node_kernel`)."""
+    from .node_kernel import node_blocks
+
     cfg = tables.cfg
-    d = cfg.dim
-    n = tables.n_nodes
     dt = cfg.dtype
     nr = xi.shape[0]
-    Yj, Nj, Wj, vmax, nq = node_column_samples(tables, xq, normals, jxw)
-    m = vmax * nq
-
-    use_pallas = cfg.backend in ("pallas", "pallas_interpret") and d == 3
-    if use_pallas:
-        from .pallas_node import pallas_node_blocks
-
-        # T x CJ program tile; the ~20 live [CJ*nq, T] working planes at
-        # CJ = 128 need ~24 MB of VMEM, covered by the 100 MB
-        # vmem_limit_bytes in the kernel's compiler params.  The LAST
-        # out-block dim must be a multiple of 128 (Mosaic lane tiling):
-        # that is CJ in the default rows_lane [9, rows, cols] layout and T
-        # in the rows_sublane [9, cols, rows] layout — keep BOTH at
-        # multiples of 128 when retuning tile sizes.
-        import os as _os
-
-        T = cfg.pallas_row_tile
-        CJ = cfg.pallas_col_chunk
-        if T % 128 or CJ % 128:
-            raise ValueError(
-                f"pallas_row_tile/pallas_col_chunk must be multiples of 128 "
-                f"(Mosaic lane tiling), got {T}/{CJ}"
-            )
-        # mixed-precision: f32 bulk sweep under an f64 assembly (the
-        # corrections below stay f64); plain runs keep the assembly dtype
-        bulk_dt = (
-            jnp.float32
-            if (cfg.mixed_bulk and jnp.dtype(dt) == jnp.float64)
-            else dt
-        )
-        transposed = (
-            _os.environ.get("BEMSTOKES_PALLAS_NODE_LAYOUT", "rows_lane")
-            != "rows_sublane"
-        ) or cfg.kernel != KERNEL_FREE_SPACE  # image kernels: transposed only
-        reduce = cfg.pallas_reduce if transposed else "gemm"
-        xi_p, Y_soa, N_soa, W_b = node_sweep_soa(
-            xi,
-            Yj,
-            Nj,
-            Wj,
-            d=d,
-            nq=nq,
-            vmax=vmax,
-            T=T,
-            CJ=CJ,
-            bulk_dt=bulk_dt,
-            q_major=(reduce != "gemm"),
-        )
-        n_tiles = xi_p.shape[0] // T
-        ncj = Y_soa.shape[0]
-        out = pallas_node_blocks(
-            xi_p,
-            Y_soa,
-            N_soa,
-            W_b,
-            CJ=CJ,
-            nq=nq,
-            vmax=vmax,
-            T=T,
-            interpret=(cfg.backend == "pallas_interpret"),
-            transposed=transposed,
-            kernel=cfg.kernel,
-            wall_axis=cfg.wall_axis,
-            wall_position=cfg.wall_position,
-            reduce=reduce,
-        )
-        Vb, Kb = out  # [9, R, C] (transposed) or [9, C, R] rows_lane
-
-        def blocks_to_dense(arr):
-            # NOTE: the planes_out=True variant (18 per-dim-pair outputs +
-            # a pure 3x3 concat here) was measured SLOWER on-chip: 184.4 ms
-            # vs this relayout's 177.9 ms at the 6146-node shape — the
-            # fragmented 18-output write costs more than the [9, R, C] ->
-            # interleaved transpose saves.  Kept as an API option on
-            # pallas_node_blocks; this stays the default.
-            if not transposed:
-                arr = arr.transpose(0, 2, 1)  # -> [9, R, C]
-            a = arr.reshape(3, 3, n_tiles * T, ncj * CJ)[:, :, :nr, :n]
-            return a.transpose(0, 2, 1, 3).reshape(d * nr, d * n).astype(dt)
-
-        V = blocks_to_dense(Vb)
-        K = blocks_to_dense(Kb)
-        V, K = _add_near_corrections(
-            V, K, euler, support_pts, xi, node_ids, tables, nr
-        )
-        return _add_singular_rows(
-            V, K, euler, support_pts, tables, r0, nr, subtract_smooth=True
-        )
-
-    cj = min(cfg.cell_chunk, n)
-    Yp = _pad_to_multiple(Yj, cj, 0, pad_value=1e8)
-    Np = _pad_to_multiple(Nj, cj, 0)
-    Wp = _pad_to_multiple(Wj, cj, 0)
-    ncj = Yp.shape[0] // cj
-    Yc = Yp.reshape(ncj, cj, m, d)
-    Nc_ = Np.reshape(ncj, cj, m, d)
-    Wc = Wp.reshape(ncj, cj, m)
-
-    tile = min(cfg.row_tile, nr)
-    xi_p = _pad_to_multiple(xi.astype(dt), tile, 0, pad_value=1e8)
-    n_tiles = xi_p.shape[0] // tile
-
-    def tile_rows(xi_t):  # [tile, d]
-        if cfg.kernel != KERNEL_FREE_SPACE:
-            xi_img = image_point(xi_t, cfg.wall_axis, cfg.wall_position)
-
-        def col_chunk(_, inp):
-            Ycc, Ncc, Wcc = inp
-            R = Ycc[None, :, :, :] - xi_t[:, None, None, :]  # [t, cj, m, d]
-            # exact R == 0 (a collocation node coinciding with one of its own
-            # cells' quadrature points, e.g. Q2 center vs odd-order Gauss)
-            # gets a dummy offset; the singular delta subtracts the SAME
-            # dummy value, so the pair cancels exactly
-            r0mask = jnp.sum(R * R, axis=-1, keepdims=True) == 0
-            R = jnp.where(r0mask, jnp.ones_like(R), R)
-            if cfg.kernel == KERNEL_FREE_SPACE:
-                R_img = R
-            else:
-                R_img = Ycc[None, :, :, :] - xi_img[:, None, None, :]
-                R_img = jnp.where(r0mask, jnp.ones_like(R_img), R_img)
-            G, Wn = _eval_G_Wn(cfg, R, R_img, Ncc[None])
-            Vb = jnp.einsum("tjmab,jm->tabj", G, Wcc)
-            Kb = -jnp.einsum("tjmab,jm->tabj", Wn, Wcc)
-            return None, (Vb, Kb)
-
-        _, (Vbs, Kbs) = jax.lax.scan(col_chunk, None, (Yc, Nc_, Wc))
-        # [ncj, t, d, d, cj] -> [t, d, d, n] -> [t, d, d*n]
-        rowV = Vbs.transpose(1, 2, 3, 0, 4).reshape(tile, d, d, ncj * cj)
-        rowK = Kbs.transpose(1, 2, 3, 0, 4).reshape(tile, d, d, ncj * cj)
-        return (
-            rowV[..., :n].reshape(tile, d, d * n),
-            rowK[..., :n].reshape(tile, d, d * n),
-        )
-
-    rowsV, rowsK = jax.lax.map(tile_rows, xi_p.reshape(n_tiles, tile, d))
-    rowsV = rowsV.reshape(n_tiles * tile, d, d * n)[:nr].transpose(1, 0, 2)
-    rowsK = rowsK.reshape(n_tiles * tile, d, d * n)[:nr].transpose(1, 0, 2)
-    V = rowsV.reshape(d * nr, d * n)
-    K = rowsK.reshape(d * nr, d * n)
-
-    V, K = _add_near_corrections(V, K, euler, support_pts, xi, node_ids, tables, nr)
-    V, K = _add_singular_rows(
-        V, K, euler, support_pts, tables, r0, nr, subtract_smooth=True
+    Yj, Nj, Wj, _, nq = node_column_samples(tables, xq, normals, jxw)
+    # mixed-precision: f32 bulk sweep under an f64 assembly (the corrections
+    # below stay f64); plain runs keep the assembly dtype
+    bulk_dt = jnp.float32 if cfg.mixed_bulk else dt
+    V, K = node_blocks(
+        xi.astype(bulk_dt),
+        node_ids,
+        Yj.astype(bulk_dt),
+        Nj.astype(bulk_dt),
+        Wj.astype(bulk_dt),
+        node_sample_cells(tables, nq),
+        kernel=cfg.kernel,
+        wall_axis=cfg.wall_axis,
+        wall_position=cfg.wall_position,
+        interpret=cfg.backend == "pallas_interpret",
     )
-    return V, K
+    V, K = V.astype(dt), K.astype(dt)
+    V, K = _add_near_corrections(V, K, euler, support_pts, xi, node_ids, tables, nr)
+    return _add_singular_rows(V, K, euler, support_pts, tables, r0, nr)
 
 
 def _pair_local_blocks(cfg, euler_cells, flip, xi_rows, keep, rule, dt):
@@ -892,10 +636,7 @@ def _near_coo(euler, support_pts, xi, node_ids, tables, nr):
     d2 = jnp.sum(
         (xi[:, None, :].astype(dt) - centers[None, :, :]) ** 2, axis=-1
     )  # [nr, Nc]
-    if cfg.near_selector == "approx":
-        _, near = jax.lax.approx_min_k(d2, Kn, recall_target=0.95)
-    else:
-        _, near = jax.lax.top_k(-d2, Kn)  # [nr, Kn] panel indices
+    _, near = jax.lax.top_k(-d2, Kn)  # [nr, Kn] panel indices
     near = near.astype(jnp.int32)
 
     lo_rule = (tables.q_weights, tables.phi_map, tables.dphi_map, tables.phi_fe)
@@ -981,10 +722,10 @@ def _singular_coo(
     out-of-range row index (callers scatter with mode="drop"; the
     matrix-free operator masks them).
 
-    With `subtract_smooth` (column_mode="node") the dense pass already added
-    an own-cell contribution with the smooth rule; this path adds
-    (singular - smooth) so the net own-cell value is the singular-rule
-    integral."""
+    With `subtract_smooth` (the matrix-free node sweep, `ops.matfree_node`)
+    the dense pass already added an own-cell contribution with the smooth
+    rule; this path adds (singular - smooth) so the net own-cell value is
+    the singular-rule integral."""
     cfg = tables.cfg
     d = cfg.dim
     n = tables.n_nodes

@@ -24,19 +24,13 @@ def tangential_projector(v, normal_flat, M_normal_flat, l2norm_gamma):
     return v - normal_flat * (jnp.dot(M_normal_flat, v) / l2norm_gamma)
 
 
-def v_nullspace_correction(
-    V, normal_pure_flat, M_normal_pure_flat, l2norm_pure, Vn=None
-):
+def v_nullspace_correction(V, normal_pure_flat, M_normal_pure_flat, l2norm_pure):
     """V += (n - V n) (M n)^T / (n . M n), rows only (all rows; constrained
     rows are excluded upstream once hanging nodes exist).
 
-    `Vn` = V @ n may be passed precomputed (the f64-at-scale TPU path
-    computes it through the split-precision GEMV, la/mixed.py).
-
     Returns (V_corrected, Vn_residual_before) so callers can report the
     reference's "Check on the V operator Norm (should be zero)" diagnostic."""
-    if Vn is None:
-        Vn = V @ normal_pure_flat
+    Vn = V @ normal_pure_flat
     update = jnp.outer(normal_pure_flat - Vn, M_normal_pure_flat / l2norm_pure)
     return V + update, Vn
 

@@ -1,29 +1,12 @@
-"""Assembly-fused matrix-free V/K actions: the node-formulation pairwise
-sweep with the GMRES vector folded INTO the sweep, so the operators are
-never materialized (reference hot loop `source/bem_stokes.cc:2915-2949`;
-matvec use `:4332` — the reference escapes its RAM cap by adding MPI ranks,
-this path escapes the HBM cap on ONE chip).
+"""Matrix-free V/K actions: the node-formulation pairwise sweep with the
+GMRES vectors folded into the sweep, so the operators are never
+materialized (reference hot loop `source/bem_stokes.cc:2915-2949`; matvec
+use `:4332` — the reference escapes its RAM cap by adding MPI ranks, this
+path escapes the device-memory cap on one device).
 
-The fold collapses the assembly kernel's 13 accumulator planes to 3 per
-input column and removes ALL per-pair HBM output traffic: with the dyadic
-structure G_ab = gs R_a R_b + d_ab/R and Wn_ab = ws R_a R_b,
-
-    sum_b G_ab x_b  = gs (R.x) R_a + x_a / R
-    sum_b Wn_ab x_b = ws (R.x) R_a
-
-so each valence step costs one extra dot (R.x) plus 2 FMA per component
-instead of 6 upper-triangle dyadic planes — and the per-program output is
-a [T, 3B] reduction instead of a [9, T, CJ] block written to HBM.  The
-image systems (free-surface mirror, Blake no-slip wall) fold the same way,
-including the non-symmetric Blake terms (N_a RI_b etc.), which contract to
-per-sample scalars (RI.x, N.x) — see `kernels/images.py` for the oracle
-formulas and `ops/pallas_node.py` for the materialized twins.
-
-Layout (transposed, as `_node_kernel_t`): rows in sublanes [T], column
-samples in lanes [CJ*nq].  Grid (row tiles, column chunks); the output
-block depends only on the row tile, so Pallas keeps it in VMEM and the
-kernel accumulates across the column-chunk grid axis.
-
+The sweep runs in XLA: per (row tile, column chunk) step it evaluates the
+Green's-function pair body (`_eval_G_Wn`, the body every assembly path
+shares) and contracts it against the weights and the input columns.
 Semantics match the materialized node pass exactly (same dummy-offset
 convention on exact R == 0 pairs, so the singular delta COO cancels them),
 verified to 1e-7 by tests/test_matfree.py.
@@ -32,13 +15,9 @@ verified to 1e-7 by tests/test_matfree.py.
 from __future__ import annotations
 
 import dataclasses
-import math
-from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .assemble import (
     AssemblyTables,
@@ -46,73 +25,43 @@ from .assemble import (
     _pad_to_multiple,
     image_point,
     node_column_samples,
-    node_sweep_soa,
     KERNEL_FREE_SPACE,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class SweepStatic:
-    """Static (trace-time) description of a fused matvec sweep."""
+    """Static (trace-time) description of a matrix-free sweep."""
 
     d: int
     n: int  # column nodes
-    nr: int  # collocation rows (= n single-chip)
+    nr: int  # collocation rows (= n single-device)
     kernel: str
     wall_axis: int
     wall_position: float
     T: int
     CJ: int
-    nq: int
-    vmax: int
-    backend: str  # "pallas" | "pallas_interpret" | "xla"
-    bulk_dt: object  # dtype of the sweep (f32 on TPU; outputs cast back)
+    bulk_dt: object  # dtype of the sweep (f32 under mixed_bulk)
     out_dt: object
 
 
-def sweep_static(tables: AssemblyTables, nr, backend=None) -> SweepStatic:
+def sweep_static(tables: AssemblyTables, nr) -> SweepStatic:
     """Static sweep description from the (host) tables alone — no arrays
     touched, so callers can build it outside jit and pass only arrays
     through jitted functions."""
     cfg = tables.cfg
-    d = cfg.dim
     dt = cfg.dtype
     is_f64 = jnp.dtype(dt) == jnp.float64
-    if backend is None:
-        plat = jax.devices()[0].platform
-        # f64 WITHOUT mixed_bulk keeps the (slow, emulated-f64) XLA sweep:
-        # the Pallas kernel is f32-only, and silently downgrading a
-        # requested-f64 operator to f32 would make GMRES stagnate against
-        # an f64 tolerance.  Opting into mixed_bulk states the f32-bulk
-        # trade explicitly (same contract as the materialized path).
-        use_pallas = plat == "tpu" and d == 3 and (not is_f64 or cfg.mixed_bulk)
-        backend = "pallas" if use_pallas else "xla"
-    bulk_dt = jnp.float32 if (cfg.mixed_bulk and is_f64) else dt
-    if backend == "pallas" and jnp.dtype(bulk_dt) == jnp.float64:
-        raise ValueError(
-            "the Pallas fused-matvec sweep is f32-only: an f64 matrix-free "
-            "run on TPU needs mixed_precision_bulk=True (f32 bulk under "
-            "f64 corrections) or matfree_backend='xla'"
-        )
-    nq = len(tables.q_weights)
-    vmax = tables.inc_slot.shape[1]
-    if backend in ("pallas", "pallas_interpret"):
-        T, CJ = cfg.pallas_row_tile, cfg.pallas_col_chunk
-    else:
-        T, CJ = min(cfg.row_tile, nr), min(cfg.cell_chunk, tables.n_nodes)
     return SweepStatic(
-        d=d,
+        d=cfg.dim,
         n=tables.n_nodes,
         nr=nr,
         kernel=cfg.kernel,
         wall_axis=cfg.wall_axis,
         wall_position=cfg.wall_position,
-        T=T,
-        CJ=CJ,
-        nq=nq,
-        vmax=vmax,
-        backend=backend,
-        bulk_dt=bulk_dt,
+        T=min(cfg.row_tile, nr),
+        CJ=min(cfg.cell_chunk, tables.n_nodes),
+        bulk_dt=jnp.float32 if (cfg.mixed_bulk and is_f64) else dt,
         out_dt=dt,
     )
 
@@ -121,21 +70,7 @@ def build_sweep_arrays(st: SweepStatic, tables, xi, xq, normals, jxw):
     """Per-frame sweep arrays for `sweep_matvec`.  xi [nr, d] collocation
     points; (xq, normals, jxw) the smooth-rule panel geometry (the same
     arrays the assembly pass uses).  Jit-compatible."""
-    Yj, Nj, Wj, vmax, nq = node_column_samples(tables, xq, normals, jxw)
-    if st.backend in ("pallas", "pallas_interpret"):
-        xi_p, Y_soa, N_soa, W_b = node_sweep_soa(
-            xi,
-            Yj,
-            Nj,
-            Wj,
-            d=st.d,
-            nq=nq,
-            vmax=vmax,
-            T=st.T,
-            CJ=st.CJ,
-            bulk_dt=st.bulk_dt,
-        )
-        return dict(xi=xi_p, Y=Y_soa, N=N_soa, W=W_b)
+    Yj, Nj, Wj, _, _ = node_column_samples(tables, xq, normals, jxw)
     return dict(
         xi=xi.astype(st.bulk_dt),
         Y=Yj.astype(st.bulk_dt),
@@ -144,9 +79,9 @@ def build_sweep_arrays(st: SweepStatic, tables, xi, xq, normals, jxw):
     )
 
 
-def build_sweep(tables: AssemblyTables, xi, xq, normals, jxw, backend=None):
+def build_sweep(tables: AssemblyTables, xi, xq, normals, jxw):
     """Convenience: (SweepStatic, arrays) in one call."""
-    st = sweep_static(tables, xi.shape[0], backend=backend)
+    st = sweep_static(tables, xi.shape[0])
     return st, build_sweep_arrays(st, tables, xi, xq, normals, jxw)
 
 
@@ -161,10 +96,7 @@ def sweep_matvec(st: SweepStatic, arrs, XV, XK):
         XV = XV[:, None]
     if squeeze_k:
         XK = XK[:, None]
-    if st.backend in ("pallas", "pallas_interpret"):
-        VX, KX = _sweep_matvec_pallas(st, arrs, XV, XK)
-    else:
-        VX, KX = _sweep_matvec_xla(st, arrs, XV, XK)
+    VX, KX = _sweep_matvec_xla(st, arrs, XV, XK)
     VX = VX.astype(st.out_dt)
     KX = KX.astype(st.out_dt)
     if squeeze_v:
@@ -172,334 +104,6 @@ def sweep_matvec(st: SweepStatic, arrs, XV, XK):
     if squeeze_k:
         KX = KX[:, 0]
     return VX, KX
-
-
-# ---------------------------------------------------------------------------
-# Pallas TPU kernel
-
-
-def _prep_x(st: SweepStatic, X):
-    """[d*n, B] flat columns -> [ncj, d, B, CJ*nq] per-sample tables
-    (each node's value repeated over its nq quadrature samples)."""
-    n, d, CJ, nq = st.n, st.d, st.CJ, st.nq
-    B = X.shape[1]
-    Xc = X.astype(st.bulk_dt).reshape(d, n, B)
-    Xp = _pad_to_multiple(Xc, CJ, 1)  # [d, ncj*CJ, B]
-    ncj = Xp.shape[1] // CJ
-    # [d, ncj, CJ, B] -> [ncj, d, B, CJ] -> repeat nq in lanes
-    Xp = Xp.reshape(d, ncj, CJ, B).transpose(1, 0, 3, 2)
-    Xp = jnp.repeat(Xp, nq, axis=3)  # [ncj, d, B, CJ*nq]
-    return Xp
-
-
-def _matvec_kernel(
-    xi_ref,
-    y_ref,
-    n_ref,
-    w_ref,
-    xv_ref,
-    xk_ref,
-    ov_ref,
-    ok_ref,
-    *,
-    CJ,
-    nq,
-    vmax,
-    T,
-    BV,
-    BK,
-    kernel,
-    wall_axis,
-    wall_position,
-):
-    dt = xi_ref.dtype
-    cG = jnp.asarray(1.0 / (8.0 * math.pi), dt)
-    cW = jnp.asarray(-3.0 / (4.0 * math.pi), dt)
-    cWn = jnp.asarray(3.0 / (4.0 * math.pi), dt)
-    m = CJ * nq
-    w_ax = wall_axis
-    image = kernel != KERNEL_FREE_SPACE
-    xi_c = [xi_ref[0, c, :][:, None] for c in range(3)]  # [T, 1]
-    if image:
-        xiw_img = 2.0 * jnp.asarray(wall_position, dt) - xi_c[w_ax]
-        h0 = xi_c[w_ax] - jnp.asarray(wall_position, dt)
-    sgn = [(-1.0 if a == w_ax else 1.0) for a in range(3)]
-
-    pV = [[None] * 3 for _ in range(BV)]  # [T, m] planes
-    pK = [[None] * 3 for _ in range(BK)]
-
-    def acc(old, new):
-        return new if old is None else old + new
-
-    for v in range(vmax):
-        Y = [y_ref[0, v, c, :][None, :] for c in range(3)]  # [1, m]
-        R = [Y[c] - xi_c[c] for c in range(3)]  # [T, m]
-        r2 = R[0] * R[0] + R[1] * R[1] + R[2] * R[2]
-        zero = r2 == 0
-        one = jnp.ones((), dt)
-        R = [jnp.where(zero, one, Rc) for Rc in R]
-        r2 = jnp.where(zero, jnp.asarray(3.0, dt), r2)
-        invR = jax.lax.rsqrt(r2)
-        invR2 = invR * invR
-        N = [n_ref[0, v, c, :][None, :] for c in range(3)]
-        pn = R[0] * N[0] + R[1] * N[1] + R[2] * N[2]
-        w = w_ref[0, v, 0, :][None, :]
-        wiR = w * invR
-        cG_wiR = cG * wiR
-        wgs = cG_wiR * invR2
-        wws = (cW * pn * invR2) * (wiR * invR2)
-
-        if image:
-            RI = list(R)
-            RI[w_ax] = Y[w_ax] - xiw_img
-            RI[w_ax] = jnp.where(zero, one, RI[w_ax])
-            rI2 = RI[0] * RI[0] + RI[1] * RI[1] + RI[2] * RI[2]
-            rI2 = jnp.where(zero, jnp.asarray(3.0, dt), rI2)
-            invRI = jax.lax.rsqrt(rI2)
-            invRI2 = invRI * invRI
-            pnI = RI[0] * N[0] + RI[1] * N[1] + RI[2] * N[2]
-            wiRI = w * invRI
-            cG_wiRI = cG * wiRI
-            wgsI = cG_wiRI * invRI2
-            if kernel == "free_surface":
-                wwsI = (cW * pnI * invRI2) * (wiRI * invRI2)
-            else:  # no_slip (Blake)
-                invRI3 = invRI * invRI2
-                invRI5 = invRI3 * invRI2
-                h0p = jnp.where(zero, jnp.zeros((), dt), h0 + 0.0 * r2)
-                RIw = RI[w_ax]
-                beta = 2.0 * h0p * (RIw - h0p)
-                wbD = cG * w * beta * invRI5
-                vDd = cG * w * beta * invRI3
-                wSD = cG * w * 2.0 * h0p * invRI3
-                wI5 = w * pnI * invRI5
-                wbI5 = w * beta * invRI5
-                wbI7 = wbI5 * invRI2
-                wU = w * 2.0 * h0p * invRI5
-
-        for b in range(BV):
-            xs = [xv_ref[0, c, b, :][None, :] for c in range(3)]
-            px = R[0] * xs[0] + R[1] * xs[1] + R[2] * xs[2]
-            tV = wgs * px
-            if not image:
-                for a in range(3):
-                    pV[b][a] = acc(pV[b][a], tV * R[a] + cG_wiR * xs[a])
-                continue
-            pxI = RI[0] * xs[0] + RI[1] * xs[1] + RI[2] * xs[2]
-            if kernel == "free_surface":
-                tVI = wgsI * pxI
-                for a in range(3):
-                    pV[b][a] = acc(
-                        pV[b][a],
-                        tV * R[a]
-                        + cG_wiR * xs[a]
-                        + sgn[a] * (tVI * RI[a] + cG_wiRI * xs[a]),
-                    )
-            else:  # no_slip
-                tVI = wgsI * pxI
-                corr_base = -3.0 * wbD * pxI  # shared over a (times RI_a)
-                for a in range(3):
-                    t_a = 1.0 if a == w_ax else -1.0
-                    corr = corr_base * RI[a] + vDd * xs[a] - wSD * RI[a] * xs[w_ax]
-                    if a == w_ax:
-                        corr = corr + wSD * pxI
-                    pV[b][a] = acc(
-                        pV[b][a],
-                        tV * R[a]
-                        + cG_wiR * xs[a]
-                        - (tVI * RI[a] + cG_wiRI * xs[a])
-                        + t_a * corr,
-                    )
-
-        for b in range(BK):
-            xs = [xk_ref[0, c, b, :][None, :] for c in range(3)]
-            px = R[0] * xs[0] + R[1] * xs[1] + R[2] * xs[2]
-            tK = wws * px
-            if not image:
-                for a in range(3):
-                    pK[b][a] = acc(pK[b][a], tK * R[a])
-                continue
-            pxI = RI[0] * xs[0] + RI[1] * xs[1] + RI[2] * xs[2]
-            if kernel == "free_surface":
-                wwsI = (cW * pnI * invRI2) * (wiRI * invRI2)
-                tKI = wwsI * pxI
-                for a in range(3):
-                    pK[b][a] = acc(
-                        pK[b][a], tK * R[a] + sgn[a] * tKI * RI[a]
-                    )
-            else:  # no_slip
-                nx = N[0] * xs[0] + N[1] * xs[1] + N[2] * xs[2]
-                tKimg = cWn * wI5 * pxI
-                t5 = cWn * 5.0 * wbI7 * pnI * pxI  # Tn leading term (x RI_a)
-                tU = cWn * wU * nx * RIw  # Un leading term (x RI_a)
-                for a in range(3):
-                    Tn_a = (
-                        t5 * RI[a]
-                        - cWn * wbI5 * N[a] * pxI
-                        - cWn * wbI5 * RI[a] * RI[a] * N[a] * xs[a]
-                    )
-                    Un_a = tU * RI[a]
-                    if a == w_ax:
-                        Un_a = Un_a - cWn * wU * pnI * pxI
-                    pK[b][a] = acc(
-                        pK[b][a],
-                        tK * R[a] + tKimg * RI[a] + sgn[a] * (-Tn_a - Un_a),
-                    )
-
-    # lane reduction [T, m] -> [T, 1] via MXU, then pack columns a*B + b
-    ones = jnp.ones((m, 1), dt)
-    dnum = (((1,), (0,)), ((), ()))
-
-    def red(p):
-        return jax.lax.dot_general(
-            p,
-            ones,
-            dimension_numbers=dnum,
-            preferred_element_type=dt,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-
-    LP = ov_ref.shape[-1]
-    colsV = [red(pV[b][a]) for a in range(3) for b in range(BV)]
-    colsK = [-red(pK[b][a]) for a in range(3) for b in range(BK)]
-    OV = jnp.concatenate(
-        colsV + [jnp.zeros((T, LP - 3 * BV), dt)], axis=1
-    )
-    OK = jnp.concatenate(
-        colsK + [jnp.zeros((T, LP - 3 * BK), dt)], axis=1
-    )
-
-    k = pl.program_id(1)
-
-    @pl.when(k == 0)
-    def _init():
-        ov_ref[...] = jnp.zeros_like(ov_ref)
-        ok_ref[...] = jnp.zeros_like(ok_ref)
-
-    ov_ref[...] = ov_ref[...] + OV[None]
-    ok_ref[...] = ok_ref[...] + OK[None]
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "CJ",
-        "nq",
-        "vmax",
-        "T",
-        "BV",
-        "BK",
-        "interpret",
-        "kernel",
-        "wall_axis",
-        "wall_position",
-    ),
-)
-def pallas_node_matvec(
-    xi,  # [n_tiles*T, 3]
-    Y,  # [ncj, vmax, 3, CJ*nq]
-    Nrm,
-    W,
-    XV,  # [ncj, 3, BV, CJ*nq]
-    XK,  # [ncj, 3, BK, CJ*nq]
-    *,
-    CJ: int,
-    nq: int,
-    vmax: int,
-    T: int,
-    BV: int,
-    BK: int,
-    interpret: bool = False,
-    kernel: str = KERNEL_FREE_SPACE,
-    wall_axis: int = 1,
-    wall_position: float = 0.0,
-):
-    """Fused sweep-matvec over all (row tile, column chunk) programs.
-    Returns (OV, OK) of shape [n_tiles, T, 128] with lane a*B+b holding
-    component a of input column b (remaining lanes zero)."""
-    n_tiles = xi.shape[0] // T
-    ncj = Y.shape[0]
-    dt = xi.dtype
-    if 3 * max(BV, BK) > 128:
-        raise ValueError("batch too large: 3*B must fit the 128-lane output")
-    xi_tiles = xi.reshape(n_tiles, T, 3).transpose(0, 2, 1)
-    tile_i = lambda i, k: (i, 0 * i, 0 * i)
-    chunk_k = lambda i, k: (k, 0 * k, 0 * k, 0 * k)
-    out_ik = lambda i, k: (i, 0 * i, 0 * i)
-    in_specs = [
-        pl.BlockSpec((1, 3, T), tile_i, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, vmax, 3, CJ * nq), chunk_k, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, vmax, 3, CJ * nq), chunk_k, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, vmax, 1, CJ * nq), chunk_k, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 3, BV, CJ * nq), chunk_k, memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 3, BK, CJ * nq), chunk_k, memory_space=pltpu.VMEM),
-    ]
-    OV, OK = pl.pallas_call(
-        partial(
-            _matvec_kernel,
-            CJ=CJ,
-            nq=nq,
-            vmax=vmax,
-            T=T,
-            BV=BV,
-            BK=BK,
-            kernel=kernel,
-            wall_axis=wall_axis,
-            wall_position=wall_position,
-        ),
-        grid=(n_tiles, ncj),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((1, T, 128), out_ik, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T, 128), out_ik, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_tiles, T, 128), dt),
-            jax.ShapeDtypeStruct((n_tiles, T, 128), dt),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(xi_tiles, Y, Nrm, W, XV, XK)
-    return OV, OK
-
-
-def _sweep_matvec_pallas(st: SweepStatic, arrs, XV, XK):
-    BV, BK = XV.shape[1], XK.shape[1]
-    XVp = _prep_x(st, XV)
-    XKp = _prep_x(st, XK)
-    OV, OK = pallas_node_matvec(
-        arrs["xi"],
-        arrs["Y"],
-        arrs["N"],
-        arrs["W"],
-        XVp,
-        XKp,
-        CJ=st.CJ,
-        nq=st.nq,
-        vmax=st.vmax,
-        T=st.T,
-        BV=BV,
-        BK=BK,
-        interpret=(st.backend == "pallas_interpret"),
-        kernel=st.kernel,
-        wall_axis=st.wall_axis,
-        wall_position=st.wall_position,
-    )
-
-    def unpack(O, B):
-        n_tiles = O.shape[0]
-        # lanes a*B + b -> [rows, 3, B] -> [3, nr, B] -> [3*nr, B]
-        O = O.reshape(n_tiles * st.T, 128)[:, : 3 * B]
-        O = O.reshape(n_tiles * st.T, 3, B)[: st.nr]
-        return O.transpose(1, 0, 2).reshape(3 * st.nr, B)
-
-    return unpack(OV, BV), unpack(OK, BK)
-
-
-# ---------------------------------------------------------------------------
-# XLA fallback (CPU tests, f64, dim 2) — the parity oracle
 
 
 def _sweep_matvec_xla(st: SweepStatic, arrs, XV, XK):

@@ -14,7 +14,7 @@ Factorization: right-looking blocked LU with block-local partial pivoting,
 one block step per device.  At step j the pivot block row is broadcast
 (psum-masked all-reduce, the shard_map analog of the ScaLAPACK panel
 broadcast), every device redundantly factors the [m, m] diagonal block (a
-single MXU-friendly dense LU — cheaper than a second collective), devices
+single dense LU — cheaper than a second collective), devices
 k > j form L_kj = A_kj U_jj^{-1} by triangular solve and rank-m update their
 trailing slab.  Communication: ndev broadcasts of an [m, Np] slab = one
 matrix-sized volume total, paid once per refactorization and amortized

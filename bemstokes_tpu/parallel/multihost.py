@@ -1,10 +1,10 @@
 """Multi-host distribution scaffolding.
 
 The reference's only transport is MPI (`include/bem_stokes.h:74`,
-`source/bem_stokes.cc:1599-1647` row maps).  The TPU-native counterpart is
+`source/bem_stokes.cc:1599-1647` row maps).  The counterpart here is
 `jax.distributed.initialize` + a process-spanning 1-D row mesh: every process
-runs the same SPMD program, `jax.devices()` covers the whole pod slice, and
-the slab row partition of `parallel.sharded` spans hosts with ICI/DCN
+runs the same SPMD program, `jax.devices()` covers every device of every
+process, and the slab row partition of `parallel.sharded` spans hosts with
 collectives inserted by XLA (SURVEY.md section 2.2).
 
 Entry points:
@@ -33,8 +33,8 @@ def initialize_multihost(
     """Initialize jax.distributed for a multi-process (multi-host) run.
 
     Returns True if a multi-process runtime was initialized, False for the
-    single-process no-op path.  Arguments default to the JAX_* env vars; on
-    TPU pods all three can be None (auto-detected from the metadata server).
+    single-process no-op path.  Arguments default to the JAX_* env vars;
+    nothing is auto-detected, so a multi-process run passes all three.
     """
     import jax
 

@@ -1,5 +1,5 @@
 """Row-partitioned distributed operators over a 1-D `jax.sharding.Mesh` —
-the TPU-native replacement for the reference's Epetra row maps + distributed
+the replacement for the reference's Epetra row maps + distributed
 SpMV (reference row partition `source/bem_stokes.cc:1599-1647`, vmult usage
 `:4332`; SURVEY.md section 2.2).
 
@@ -10,7 +10,7 @@ nodes.  Stacked over devices this is a [ndev*d*nloc, d*n] array sharded
 P('rows', None).  Columns (and therefore GMRES iterates x) stay in the global
 component-blocked flat layout, replicated.
 
-Matvec: x replicated -> local GEMV on each slab (pure MXU work, no
+Matvec: x replicated -> local GEMV on each slab (no
 communication) -> result is row-sharded; the all-gather back to a replicated
 vector is O(d*n) bytes vs the O((d*n)^2 / ndev) local read, and XLA overlaps
 it with surrounding work.  This is the BASELINE north-star pattern with the

@@ -402,7 +402,7 @@ def make_sharded_frame_step(
       reference's refactor-on-iteration-trigger semantics
       (`source/direct_preconditioner.cc`, trigger `source/bem_stokes.cc:
       4336-4339, 5768-5779`); `solver.preconditioner_dtype == "float32"`
-      factors in f32 (the TPU mixed-precision path);
+      factors in f32 (the mixed-precision preconditioner);
     - `solver.preconditioner_type == "Jacobi"` uses the distributed diagonal;
       every other type maps to block-Jacobi-LU — each device's diagonal
       block is its local dense LU;

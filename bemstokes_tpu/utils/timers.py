@@ -2,7 +2,7 @@
 Teuchos::TimeMonitor timers (Run, Assemble, LAC Solve, BEM Reinitialisation,
 DirectPreconditioner Refactorisation; `source/bem_stokes.cc:19-23`, RAII
 scopes at `:2844, 4161, 5639, 5770`, summarized at `:5882`), extended with
-optional jax.profiler traces for per-kernel TPU timelines.
+optional jax.profiler traces for per-kernel device timelines.
 
 Timing JAX correctly requires a device sync at scope exit, otherwise the
 timer only sees dispatch; scopes take `sync=` pytrees to block on.
@@ -73,7 +73,7 @@ class TimerRegistry:
     @contextlib.contextmanager
     def profile(self, logdir: str):
         """jax.profiler trace around a region (view with TensorBoard /
-        xprof); the per-kernel TPU timeline the reference never had."""
+        xprof); the per-kernel device timeline the reference never had."""
         import jax
 
         jax.profiler.start_trace(logdir)

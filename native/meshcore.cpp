@@ -1,7 +1,7 @@
 // meshcore: native host-side mesh engine for bemstokes_tpu.
 //
 // The reference's runtime is C++ end-to-end (deal.II GridIn readers,
-// Triangulation topology, METIS partitioning).  On TPU the device compute is
+// Triangulation topology, METIS partitioning).  Here the device compute is
 // JAX/XLA, but the host-side mesh machinery — file parsing, vertex welding,
 // topology/incidence tables — stays latency-bound CPU work on the frame
 // loop's critical path (a new gait mesh is read EVERY frame, reference

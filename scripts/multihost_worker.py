@@ -3,7 +3,7 @@
 Each process owns a slice of virtual CPU devices; together they form the
 process-spanning row mesh over which the full distributed frame step
 (sharded assembly, slab corrections, distributed stale-LU GMRES) runs SPMD —
-the TPU-native analog of the reference's MPI ranks + Epetra row maps
+the analog of the reference's MPI ranks + Epetra row maps
 (`/root/reference/source/bem_stokes.cc:1599-1647`, Allreduce `:2525-2537`,
 Bcast `:4409-4414`).
 
@@ -71,14 +71,11 @@ def main():
         WallConfig,
         WallRefinementConfig,
     )
-    from bemstokes_tpu.mesh import read_mesh
-    from bemstokes_tpu.mesh.factories import add_walls_to_mesh
-    from bemstokes_tpu.mesh.refine import refine_uniform, SphericalManifold
+    from bemstokes_tpu.flagella import create_bacterium_mesh
+    from bemstokes_tpu.mesh.factories import add_walls_to_mesh, create_sphere
     from bemstokes_tpu.problem import StokesBEMProblem
-    from bemstokes_tpu.fem.geometry import euler_from_mesh
     from bemstokes_tpu.parallel.solve import make_sharded_frame_step
 
-    grid = "/root/reference/tests/grid_test"
     if config == "constraints":
         cfg = ProblemConfig(
             grid_type="ImposedVelocity",
@@ -101,9 +98,7 @@ def main():
                 preconditioner_type="Direct", tolerance=1e-10
             ),
         )
-        mesh = read_mesh(f"{grid}/sphere_translation_0.msh", dim=3)
-        mesh = refine_uniform(mesh, SphericalManifold(), times=1)
-        mesh = add_walls_to_mesh(mesh, cfg)
+        mesh = add_walls_to_mesh(create_sphere(refinements=3), cfg)
         prob = StokesBEMProblem(mesh, cfg)
         assert prob.hanging.n > 0  # the matrix cell this config exists for
         euler0 = prob.initial_euler()
@@ -117,18 +112,16 @@ def main():
                 preconditioner_type="Direct", tolerance=1e-10
             ),
         )
-        mesh = read_mesh(f"{grid}/bacterium_0.msh", dim=3, force_material=0)
-        prob = StokesBEMProblem(mesh, cfg)
+        prob = StokesBEMProblem(create_bacterium_mesh(), cfg)
         euler0 = prob.initial_euler()
         sdot = jnp.zeros((3 * prob.n,))
     else:  # plain
-        mesh = read_mesh(f"{grid}/sphere_translation_0.msh", dim=3)
-        mesh1 = read_mesh(f"{grid}/sphere_translation_1.msh", dim=3)
+        # the sphere-translation gait: the shape moves by -1/120 along x per
+        # time step, so the force-free sphere swims at +1/120 per step
         cfg = ProblemConfig(grid_type="Real", force_pole="Origin")
-        prob = StokesBEMProblem(mesh, cfg)
+        prob = StokesBEMProblem(create_sphere(refinements=2), cfg)
         euler0 = prob.initial_euler()
-        euler1 = jnp.asarray(euler_from_mesh(mesh1.vertices, prob.map_space))
-        sdot = prob.shape_velocities_fd(euler0, euler1)
+        sdot = prob.shape_velocities_fd(euler0, euler0.at[:, 0].add(-1.0 / 120.0))
 
     dmesh = global_row_mesh()
     assert dmesh.devices.size == nproc * dev_per_proc

@@ -1,19 +1,18 @@
 """f32 end-to-end dtype discipline: with dtype=float32 the whole pipeline
 must stay f32 even under jax_enable_x64 (a single unconverted f64 table used
 to promote the normal solve — and through the V null-space correction the V
-operator — to f64, which on TPU means emulated-f64 assembly and an
-uncompilable f64 LuDecomposition)."""
+operator — to f64, which silently doubles the cost of every f32 run)."""
 
 import numpy as np
 import jax.numpy as jnp
 
 from bemstokes_tpu.config import ProblemConfig, SolverConfig
-from bemstokes_tpu.mesh import read_mesh
+from bemstokes_tpu.mesh.factories import create_sphere
 from bemstokes_tpu.problem import StokesBEMProblem
 
 
-def test_f32_pipeline_stays_f32(reference_grid_dir):
-    mesh = read_mesh(f"{reference_grid_dir}/sphere_translation_0.msh", dim=3)
+def test_f32_pipeline_stays_f32():
+    mesh = create_sphere(refinements=2)
     cfg = ProblemConfig(
         grid_type="ImposedVelocity",
         imposed_component=0,

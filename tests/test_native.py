@@ -13,27 +13,60 @@ from bemstokes_tpu._native import (
 )
 from bemstokes_tpu.mesh.io import read_msh, read_inp
 
-MSH = "/root/reference/tests/grid_test/sphere_translation_0.msh"
-INP = "/root/reference/debug_grids/circle_0.inp"
-
 needs_native = pytest.mark.skipif(
     get_lib() is None, reason="native meshcore not buildable here"
 )
 
 
+@pytest.fixture
+def msh_path(tmp_path):
+    """The in-code refinement-2 sphere written as gmsh v2: 1-based node
+    ids, counterclockwise quads, one physical tag per cell."""
+    from bemstokes_tpu.mesh.factories import create_sphere
+
+    mesh = create_sphere(refinements=2)
+    lines = ["$MeshFormat", "2.2 0 8", "$EndMeshFormat", "$Nodes"]
+    lines.append(str(mesh.n_vertices))
+    lines += [
+        f"{k + 1} {x:.17g} {y:.17g} {z:.17g}" for k, (x, y, z) in enumerate(mesh.vertices)
+    ]
+    lines += ["$EndNodes", "$Elements", str(len(mesh.cells))]
+    for k, (a, b, c, d) in enumerate(mesh.cells):
+        lines.append(f"{k + 1} 3 2 {k % 3} 1 {a + 1} {b + 1} {d + 1} {c + 1}")
+    lines.append("$EndElements")
+    path = tmp_path / "sphere.msh"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.fixture
+def inp_path(tmp_path):
+    """A 24-segment circle written as UCD lines with 1-based node ids."""
+    n = 24
+    t = 2 * np.pi * np.arange(n) / n
+    lines = [f"{n} {n} 0 0 0"]
+    lines += [f"{k + 1} {np.cos(a):.17g} {np.sin(a):.17g} 0" for k, a in enumerate(t)]
+    lines += [f"{k + 1} {k % 2} line {k + 1} {(k + 1) % n + 1}" for k in range(n)]
+    path = tmp_path / "circle.inp"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
 @needs_native
-def test_native_msh_matches_python():
-    v, c, m = read_mesh_native(MSH, 3, "msh")
-    ref = read_msh(MSH, 3)
+def test_native_msh_matches_python(msh_path):
+    v, c, m = read_mesh_native(msh_path, 3, "msh")
+    ref = read_msh(msh_path, 3)
+    assert len(ref.cells) == 96 and ref.material_id.max() == 2
     assert np.array_equal(v, ref.vertices)
     assert np.array_equal(c, ref.cells)
     assert np.array_equal(m, ref.material_id)
 
 
 @needs_native
-def test_native_inp_matches_python_2d():
-    v, c, m = read_mesh_native(INP, 2, "inp")
-    ref = read_inp(INP, 2)
+def test_native_inp_matches_python_2d(inp_path):
+    v, c, m = read_mesh_native(inp_path, 2, "inp")
+    ref = read_inp(inp_path, 2)
+    assert ref.cells.shape == (24, 2)
     assert np.array_equal(v, ref.vertices)
     assert np.array_equal(c, ref.cells)
     assert np.array_equal(m, ref.material_id)

@@ -1,13 +1,14 @@
 """Preconditioner family (reference selection `source/bem_stokes.cc:4283-4313`,
 banded variant `:1724-1761`): every member must drive GMRES on the monolithic
-sphere system to the same solution as the direct solve."""
+sphere system to the same solution as the direct solve.  The sphere is the
+in-code refinement-2 sphere (98 nodes)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 from bemstokes_tpu.config import ProblemConfig, SolverConfig
-from bemstokes_tpu.mesh import read_mesh
+from bemstokes_tpu.mesh.factories import create_sphere
 from bemstokes_tpu.problem import StokesBEMProblem
 from bemstokes_tpu.la.gmres import gmres
 from bemstokes_tpu.la.direct import lu_factor_dense, lu_solve_dense
@@ -15,8 +16,8 @@ from bemstokes_tpu.la.preconditioners import build_preconditioner, band_mask
 
 
 @pytest.fixture(scope="module")
-def monolithic_system(reference_grid_dir):
-    mesh = read_mesh(f"{reference_grid_dir}/sphere_translation_0.msh", dim=3)
+def monolithic_system():
+    mesh = create_sphere(refinements=2)
     cfg = ProblemConfig(
         grid_type="ImposedVelocity",
         imposed_component=0,
@@ -58,8 +59,8 @@ def test_banded_preconditioner(monolithic_system):
     assert float(B[0, n - 1]) == 0.0
 
 
-def test_problem_level_dispatch(reference_grid_dir):
-    mesh = read_mesh(f"{reference_grid_dir}/sphere_translation_0.msh", dim=3)
+def test_problem_level_dispatch():
+    mesh = create_sphere(refinements=2)
     cfg = ProblemConfig(
         grid_type="ImposedVelocity",
         imposed_component=0,

@@ -126,7 +126,7 @@ def test_direct_sharded_stale_reuse_semantics(reference_grid_dir):
 
 
 def test_direct_sharded_f32_factor_path(reference_grid_dir):
-    """preconditioner_dtype=float32 (the TPU mixed-precision path): f32
+    """preconditioner_dtype=float32 (the mixed-precision preconditioner): f32
     distributed LU preconditioning f64 GMRES still converges in a few
     iterations to the f64 answer."""
     prob, euler0, _, sdot = _sphere_problem(
